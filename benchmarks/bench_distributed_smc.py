@@ -1,6 +1,6 @@
 """Distributed-SMC scaling proxy on the virtual CPU mesh.
 
-Real ICI scaling cannot be measured in this 1-chip environment; what CAN be
+Real interconnect scaling cannot be measured in this 1-chip environment; what CAN be
 measured — and what this records (VERDICT r1 item 7) — is that sharding the
 genealogy particle filter over more virtual devices keeps the per-particle
 cost flat (no partitioning pathology, no superlinear collective overhead)
@@ -9,7 +9,7 @@ host's cores, so absolute time contains NO parallel speedup; the meaningful
 column is per-particle-step cost vs the 1-device baseline at fixed total
 work (strong-scaling overhead proxy).
 
-Per-step ICI traffic (the architectural argument, measured here only as
+Per-step interconnect traffic (the architectural argument, measured here only as
 compile-time collective counts):
   all_gather: (N,) weights + (N, state_dim) state onto every device
   ring:       n_local/2 * state_dim point-to-point (one static ppermute)

@@ -1,9 +1,9 @@
-"""TPU A/B of the three gp_structure engines (VERDICT r4 item 6):
+"""A/B of the three gp_structure engines:
 
 - arena: full-universe dynamic-DSL model, masked regenerate (round 3)
 - incremental: carried per-slot covariance planes, shared-r switch — the
-  reference incremental.jl mechanism (round 4; CPU winner, measured to
-  INVERT on TPU at depth 3: flops beat bytes)
+  reference incremental.jl mechanism (round 4; the CPU winner at
+  depth 3)
 - direct (round 5): NO carried planes, per-chain replace sites, full
   bottom-up root-covariance recompute — the flops-beat-bytes conclusion
   taken to its end.
@@ -11,7 +11,7 @@
 Reports sweeps/s per engine at depth 3 (all three) and depth 5
 (incremental vs direct; the arena engine cannot practically run there).
 
-Run (real TPU): python benchmarks/bench_gp_direct.py
+Run (GPU): python benchmarks/bench_gp_direct.py
 """
 import os
 import sys

@@ -1,12 +1,12 @@
 """Validated fused-sampler benchmarks BEYOND the 3-param regression model.
 
-Round-2 mandate (VERDICT items 1 and 6): prove the fused Pallas HMC path
-(ChEES cross-chain warmup -> ops/hmc_fused.py kernel) delivers validated
-throughput on targets that are not the easy conjugate-ish regression —
-hierarchical/funnel-ish and ill-conditioned geometry — with the same
-evidence standard as benchmarks/bench_verify.py: cross-chain posterior
-moments against an EXACT reference (quadrature/analytic) on the full chain
-population, plus rank-normalized split-R-hat on a separate multi-draw run.
+The fused HMC path (ChEES cross-chain warmup -> ops/hmc_fused.py) must
+deliver validated throughput on targets that are not the easy
+conjugate-ish regression — hierarchical/funnel-ish and ill-conditioned
+geometry — with the same evidence standard as benchmarks/bench_verify.py:
+cross-chain posterior moments against an EXACT reference
+(quadrature/analytic) on the full chain population, plus rank-normalized
+split-R-hat on a separate multi-draw run.
 
 Targets (every coordinate's mean AND sd gated):
 
@@ -29,7 +29,7 @@ Targets (every coordinate's mean AND sd gated):
 The fused kernel sees each model only through its GFI assess-logp staged by
 ops/scalarize.py — nothing here is hand-specialized per target.
 
-Run (real TPU): python benchmarks/bench_hard_targets.py
+Run (GPU): python benchmarks/bench_hard_targets.py
 Quick CPU check: python benchmarks/bench_hard_targets.py --small
 """
 
@@ -101,8 +101,7 @@ def eight_schools_exact():
 def make_schools(K=100, seed=0, mu_true=4.0, tau_true=6.0):
     """Synthetic K-school dataset from the model's own prior-predictive
     structure (fixed hyperparameters): the d = K + 2 hierarchical target
-    for the widened fused-NUTS envelope (VERDICT r3 item 1 — a 100-school
-    eight_schools, d = 102, did not fit the round-3 kernel)."""
+    (K = 100 gives the d = 102 many-chain NUTS cell)."""
     rng = np.random.default_rng(seed)
     sigmas = rng.uniform(9.0, 18.0, K)
     theta = mu_true + tau_true * rng.standard_normal(K)
@@ -170,7 +169,7 @@ def make_correlated(d=16, cond=1e3, seed=0, rotate=True):
 
 def run_target(name, model, args, obs, sel, exact, collect_addr, *,
                n_chains, n_steps, num_warmup, rhat_chains, rhat_steps,
-               mean_tol=0.05, sd_tol=0.05, seed=0, use_pallas=None,
+               mean_tol=0.05, sd_tol=0.05, seed=0,
                target_accept=0.8, mass="diag"):
     """ChEES warmup -> fused kernel sampling -> validation. Returns a row
     dict (and prints the evidence).
@@ -245,8 +244,7 @@ def run_target(name, model, args, obs, sel, exact, collect_addr, *,
     def run_fused(values, k):
         return hmc_chains_fused(k, logp_use, values, n_steps=n_steps,
                                 L=n_leap, eps=eps, collect_idx=i_collect,
-                                inv_mass_diag=inv_mass,
-                                use_pallas=use_pallas)
+                                inv_mass_diag=inv_mass)
 
     # compile + extra warmup; host fetch is the completion barrier
     values, s0, _ = run_fused(warm_flat, k_fused)
@@ -338,7 +336,7 @@ def run_target(name, model, args, obs, sel, exact, collect_addr, *,
         lo, hi = offsets[paths.index(p)], offsets[paths.index(p) + 1]
         # one coordinate at a time: the rank-normalized ESS does a padded
         # FFT over (steps, chains) — the full (steps, chains, d) block at
-        # the hard targets' 2000-step runs over-commits TPU HBM
+        # the hard targets' 2000-step runs over-commits device memory
         rh = max(float(np.max(np.asarray(
             summarize({"c": jnp.asarray(hv[:, :, j])})["c"]["rhat"])))
             for j in range(lo, hi))

@@ -1,12 +1,12 @@
-"""Collapsed state-space-model HMC in the fused Pallas kernel.
+"""Collapsed state-space-model HMC in the fused HMC kernel.
 
-Round-2 scalarize extension (unrolled scan / cholesky / triangular_solve):
+The scalarize pass (unrolled scan / cholesky / triangular_solve) stages
 the exact Kalman-filter marginal likelihood — a ``lax.scan`` of matmuls,
-Cholesky factorizations and triangular solves — now stages into
-ops/hmc_fused.py, so the Rao-Blackwellized PMMH workload (reference
-examples/pmmh: AR(1)-plus-noise hyperparameter posterior; our collapsed
-formulation has zero pseudo-marginal variance) runs with every chain's
-entire T-step filter recursion unrolled inside one VMEM-resident kernel.
+Cholesky factorizations and triangular solves — into ops/hmc_fused.py, so
+the Rao-Blackwellized PMMH workload (reference examples/pmmh:
+AR(1)-plus-noise hyperparameter posterior; our collapsed formulation has
+zero pseudo-marginal variance) runs with every chain's entire T-step
+filter recursion unrolled inside one kernel.
 
 Evidence standard (bench_verify): cross-chain moments of the final chain
 population vs an EXACT 3-D quadrature of the collapsed posterior (the
@@ -15,7 +15,7 @@ standard — each grid node evaluates the exact Kalman log-marginal), plus
 rank-normalized split-R-hat on a separate multi-draw run, plus an XLA
 same-model comparison for the kernel speedup.
 
-Run (real TPU): python benchmarks/bench_statespace_fused.py
+Run (GPU): python benchmarks/bench_statespace_fused.py
 Quick CPU check: python benchmarks/bench_statespace_fused.py --small
 """
 
@@ -124,8 +124,7 @@ def main(small=False):
         rhat_chains=2048 // (8 if small else 1),
         # ChEES picks L=1 here (near-Langevin), so the convergence
         # diagnostic needs a long run (R-hat ~1.02 at 1000 steps)
-        rhat_steps=1000 if small else 12000,
-        use_pallas=None if not small else False)
+        rhat_steps=1000 if small else 12000)
 
     # XLA same-model comparison at the same chain count (kernel speedup)
     from gen_tpu.inference.hmc import hmc_chains

@@ -1,22 +1,16 @@
-"""Streamed non-collapsible likelihood through the fused kernels:
-robust-t regression with the dataset streamed through the kernel —
-n = 10,000 from SMEM (round-4 stream staging) and n = 1,000,000 from HBM
-in DMA tiles (round-5 HBM-tiled streaming, ops/scalarize.py).
+"""A non-collapsible per-point likelihood at scale: robust-t regression
+with n = 10,000 points (``--big``: n = 1,000,000) through
+``engine='auto'`` FSM-NUTS.
 
-Evidence standard (raised to the house standard in round 5, VERDICT r4
-item 5):
-- engine='auto' must DISPATCH the fused path for this model (the round-3
-  behavior was a silent 1000x fallback at the 1024-scalar residual cap);
+Evidence standard:
+- engine='auto' must dispatch nuts_fused for this model;
 - validation: FULL-coordinate cross-chain moments of unbiased extracted
-  draws vs an exact 3-D QUADRATURE reference (d = 3: quadrature is
-  cheap; the previous Laplace-vs-coordinate-0 gate was below the house
-  standard) + rank-normalized split-R-hat, at the usual tolerances;
-- bench: the fused kernel vs the XLA FSM at the SAME chain count on the
-  same chip, plus the streaming engine's bytes/point and achieved GB/s
-  against the ~600 GB/s measured HBM roofline (honesty row: the stream
-  loop is issue/latency-bound, not bandwidth-bound).
+  draws vs an exact 3-D QUADRATURE reference + rank-normalized
+  split-R-hat, at the usual tolerances;
+- bench: ESS/s of the timed run, and the size of the data table the fused
+  HMC kernel would stream for this model (ops/scalarize.py).
 
-Run (real TPU): python benchmarks/bench_stream.py [--big]
+Run (GPU): python benchmarks/bench_stream.py [--big]
 Quick CPU check: python benchmarks/bench_stream.py --small
 """
 import os
@@ -134,7 +128,7 @@ def quadrature_reference(xs, ys, n_grid=48, span=7.0):
 
 def run_config(n_data, n_chains, n_ticks, num_warmup, *, small=False,
                gates=True, name="robust_t_stream", seed=0,
-               warmup_chains=None, xla_compare=True,
+               warmup_chains=None,
                mean_tol=0.05, sd_tol=0.06):
     import bench as B
     from gen_tpu.inference.chees import chees_hmc_warmup_and_sample
@@ -145,11 +139,6 @@ def run_config(n_data, n_chains, n_ticks, num_warmup, *, small=False,
     from gen_tpu.ops.scalarize import stage_scalarized
     from gen_tpu.diagnostics import summarize
 
-    # pin the KERNEL for the fused rows: since round 5 use_pallas=None
-    # auto-dispatches stream models to the XLA twin when its batching
-    # fits (the measured 2x crossover) — this bench exists to measure
-    # the kernel itself against that twin
-    use_pallas = False if small else True
     xs, ys = make_data(seed, n_data)
     model = make_model(xs)
     obs = choicemap(ys=ys)
@@ -167,14 +156,13 @@ def run_config(n_data, n_chains, n_ticks, num_warmup, *, small=False,
     target0 = FlatTarget(tr0, sel)
     staged = stage_scalarized(target0.logp, 3)
     n_rows = int(staged.stream_data.shape[0])
-    print(f"stream mode: {'HBM-tiled' if staged.stream_hbm else 'SMEM'} "
-          f"({n_rows} rows, {4 * n_rows} bytes/point, table "
+    print(f"stream table: ({n_rows} rows, {4 * n_rows} bytes/point, table "
           f"{staged.stream_data.size * 4 / 2 ** 20:.1f} MB)")
 
     # the XLA warmup materializes (chains x points) likelihood
     # intermediates — at n = 1M that must run on a chain SUBSET (the
     # shared eps/mass need only a population, not the full count; the
-    # full-count warmup crashed the TPU worker at 1024 x 1M)
+    # full-count warmup does not fit at 1024 x 1M)
     wc = min(n_chains, warmup_chains or n_chains)
     init_keys = jax.random.split(k_init, n_chains)
     traces, _ = jax.jit(jax.vmap(
@@ -197,48 +185,27 @@ def run_config(n_data, n_chains, n_ticks, num_warmup, *, small=False,
         warm_flat = jnp.tile(warm_flat, (reps, 1))[:n_chains]
     print(f"warmup {time.time()-t_w:.1f}s ({wc} chains): eps={eps:.4f}")
 
-    def run(c, values, k, up):
+    def run(c, values, k):
         return nuts_chains_fused_chunked(
             k, target.logp, values, num_ticks=n_ticks, eps=eps,
-            max_depth=6, inv_mass_diag=inv_mass, collect_idx=c,
-            use_pallas=up, paired=True)
+            max_depth=6, inv_mass_diag=inv_mass, collect_idx=c)
 
     t_c = time.time()
-    values, hist, hcnt, cnt, stats = run(0, warm_flat, k_run, use_pallas)
+    values, hist, hcnt, cnt, stats = run(0, warm_flat, k_run)
     float(jnp.sum(hist[-1]))
     print(f"first fused call (compile+run) {time.time()-t_c:.1f}s; "
           f"mean_depth={float(jnp.mean(stats['mean_depth'])):.2f} "
           f"mean_accept={float(jnp.mean(stats['mean_accept'])):.2f}")
     del hist, hcnt
     t0 = time.time()
-    values, hist, hcnt, cnt, _ = run(0, values, k_time, use_pallas)
+    values, hist, hcnt, cnt, _ = run(0, values, k_time)
     float(jnp.sum(hist[-1]))
     el_fused = time.time() - t0
     ess_fused = B.autocorr_ess(np.asarray(hist)) / el_fused
     us_tick = el_fused * 1e6 / n_ticks
-    ns_point = us_tick * 1e3 / n_data / max(n_chains / 1024, 1)
-    # one pass over the table per leapfrog slot per 1024-chain tile
-    gbs = (4 * n_rows * n_data) * max(n_chains / 1024, 1) \
-        / (us_tick * 1e-6) / 1e9
     print(f"fused: {el_fused*1e3:.0f} ms / {n_ticks} slots "
-          f"({us_tick:.0f} us/slot, {ns_point:.1f} ns/point/1024-chains, "
-          f"{gbs:.2f} GB/s effective vs ~600 GB/s HBM roofline) -> "
-          f"{ess_fused/1e3:.1f}k ESS/s")
+          f"({us_tick:.0f} us/slot) -> {ess_fused/1e3:.1f}k ESS/s")
     del hist, hcnt
-
-    ratio = None
-    if not small and xla_compare:
-        _, hx, _, _, _ = run(0, values, k_run, False)
-        float(jnp.sum(hx[-1]))
-        t0 = time.time()
-        _, hx, _, _, _ = run(0, values, k_time, False)
-        float(jnp.sum(hx[-1]))
-        el_x = time.time() - t0
-        ess_x = B.autocorr_ess(np.asarray(hx)) / el_x
-        ratio = ess_fused / ess_x
-        print(f"XLA FSM @ {n_chains} chains: {el_x*1e3:.0f} ms -> "
-              f"{ess_x/1e3:.1f}k ESS/s; fused/XLA = {ratio:.1f}x")
-        del hx
 
     ok = True
     if gates:
@@ -247,7 +214,7 @@ def run_config(n_data, n_chains, n_ticks, num_warmup, *, small=False,
         rhat_worst = 0.0
         for c, p in enumerate(paths):
             _, hist_c, hcnt_c, cnt_c, _ = run(
-                c, values, jax.random.fold_in(k_run, c), use_pallas)
+                c, values, jax.random.fold_in(k_run, c))
             m = int(jnp.min(cnt_c))
             if m < 8:
                 print(f"  {str(p):16s} only {m} draws — raise n_ticks")
@@ -272,8 +239,7 @@ def run_config(n_data, n_chains, n_ticks, num_warmup, *, small=False,
               f"=> {'ALL CHECKS PASS' if ok else 'CHECKS FAILED'} "
               "(full-coordinate moments vs exact 3-D quadrature)")
     row = dict(name=name, n_data=n_data, n_chains=n_chains,
-               ess_per_sec=ess_fused, fused_vs_xla=ratio,
-               ns_per_point=ns_point, eff_gb_s=gbs, ok=bool(ok))
+               ess_per_sec=ess_fused, us_per_tick=us_tick, ok=bool(ok))
     print(row)
     return ok
 
@@ -285,7 +251,8 @@ def main(small=False, big=False, n_chains=None, n_ticks=None, gates=True):
         60 if small else 200, small=small, gates=gates,
         name="robust_t_stream_10k")
     if big:
-        # n = 1M: the table (2 rows x 1M x 4B = 8 MB) streams from HBM
+        # n = 1M: the engine materializes (chains x points) likelihood
+        # intermediates, 4 GB per f32 intermediate at 1024 x 1M
         ok &= run_config(
             1_000_000, 1024, 1600, 250, small=small, gates=gates,
             name="robust_t_stream_1M", warmup_chains=128,
@@ -299,11 +266,7 @@ def main(small=False, big=False, n_chains=None, n_ticks=None, gates=True):
             # physically unreachable in f32 at this n; the n=10k config
             # holds it, and the printed absolute error keeps this
             # honest.
-            mean_tol=0.3, sd_tol=0.12,
-            # the XLA path's (chains x points) batching is exactly what
-            # does NOT scale to n = 1M (it crashed the TPU worker) — the
-            # HBM stream exists for this regime; no XLA twin run
-            xla_compare=False)
+            mean_tol=0.3, sd_tol=0.12)
     return 0 if ok else 1
 
 

@@ -1,8 +1,8 @@
 """Where dense combinator updates hurt: the single-site Unfold crossover.
 
 VERDICT round-1 weak item 5: Map/Unfold ``update`` re-runs the full
-vmap/scan and relies on exact weight arithmetic — on TPU dense recompute is
-usually right, but a SINGLE-site update on a long Unfold pays O(T) compute
+vmap/scan and relies on exact weight arithmetic — on an accelerator dense
+recompute is usually right, but a SINGLE-site update on a long Unfold pays O(T) compute
 where the reference's dirty-set bookkeeping (unfold/update.jl:22-113) pays
 O(1). This benchmark measures exactly that tax and the framework's answer.
 
@@ -18,9 +18,9 @@ Three ways to move one (or every) site of a T-step AR(1) chain trace:
   coal/regression examples' pattern).
 - ``vmap_chains``: the dense update's native habitat — 1024 independent
   chains vmapped; per-site-per-chain cost shows the throughput the dense
-  formulation buys once there is ANY batch dimension to feed the VPU.
+  formulation buys once there is ANY batch dimension to feed the device.
 
-Run: python benchmarks/bench_unfold_update.py        (real TPU)
+Run: python benchmarks/bench_unfold_update.py        (GPU)
      python benchmarks/bench_unfold_update.py --cpu
 """
 

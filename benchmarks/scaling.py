@@ -1,18 +1,18 @@
 """Weak-scaling harness: sharded inference throughput vs device count.
 
-Run with a virtual mesh (no TPU pod needed):
+Run with a virtual mesh (no accelerators needed):
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         python benchmarks/scaling.py
 
-On a real pod slice the same code shards over ICI. Weak scaling: the
+On real devices the same code shards over the interconnect. Weak scaling: the
 per-device workload is constant (chains/particles per device fixed), so
 ideal efficiency keeps time flat as devices grow. Reports one JSON line per
 configuration.
 
 CAVEAT: on a virtual CPU mesh the "devices" share one host's cores, so the
 efficiency column measures partitioning overhead only — it cannot approach
-1.0 and must not be read as an ICI weak-scaling claim (those need a real
-pod slice). The output marks such runs with "virtual_mesh": true."""
+1.0 and must not be read as an interconnect weak-scaling claim (those need a real
+multi-device machine). The output marks such runs with "virtual_mesh": true."""
 
 import json
 import time

@@ -54,7 +54,7 @@ def main(seed=0):
     assert abs(loc - EXACT_MU) < 0.02, loc
     assert abs(std - EXACT_STD) < 0.03, std
 
-    # reparameterized (pathwise) estimator — TPU-native addition
+    # reparameterized (pathwise) estimator — accelerator-native addition
     vm2 = make_var_model()
     update2 = ParamUpdate(ADAM(0.03), vm2)
     _, _, hist2 = reparam_vi(jax.random.PRNGKey(seed + 1), model, (), OBS,

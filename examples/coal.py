@@ -3,7 +3,7 @@
 Reference: /root/reference/examples/coal/coal.jl (Green 1995 changepoint
 RJMCMC with birth/death involutions).
 
-TPU-native design: the trace is a **fixed-shape arena** — K_MAX changepoint
+Design: the trace is a **fixed-shape arena** — K_MAX changepoint
 position slots and K_MAX+1 height slots always exist; ``k`` selects how many
 are active, and inactive slots sit at their prior (so every trace has the
 same pytree shape and all moves jit). Trans-dimensional birth/death is a

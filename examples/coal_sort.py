@@ -20,7 +20,7 @@ binned-counts arena in examples/coal.py:
   actual changepoint dies (coal_sort.jl:389-404).
 * A position move bounded by the sorted neighbors (coal_sort.jl:175-218).
 
-TPU-native design: fixed-shape arena (K_MAX changepoint slots, K_MAX + 1
+Design: fixed-shape arena (K_MAX changepoint slots, K_MAX + 1
 rate slots; ``k`` chooses how many are active; inactive changepoint slots
 pin to t_end inside the model so their segments have zero length). Two
 sampler surfaces:

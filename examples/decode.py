@@ -3,7 +3,7 @@
 Reference: /root/reference/examples/decode — recovering text enciphered
 with an unknown substitution table using a bigram language model.
 
-TPU-native design: both conditionals are *exact* and fully vectorized —
+Design: both conditionals are *exact* and fully vectorized —
 (1) given the plaintext, each cipher-table entry's posterior is an
 independent categorical; (2) given the table, plaintext characters form a
 Markov chain whose even/odd checkerboard blocks are conditionally
@@ -104,8 +104,7 @@ def gibbs_enc(key, trace, cipher):
     counts = jnp.zeros((K, K)).at[plain, cipher].add(1.0)
     logits = counts * jnp.log((1 - EMIS_EPS) + EMIS_EPS / K) \
         + (counts.sum(axis=1, keepdims=True) - counts) * jnp.log(EMIS_EPS / K)
-    from gen_tpu.ops import categorical_fast
-    new_enc = categorical_fast(key, logits).astype(trace["enc"].dtype)
+    new_enc = jax.random.categorical(key, logits).astype(trace["enc"].dtype)
     new_trace, _, _, _ = trace.update(None, choicemap(enc=new_enc))
     return new_trace
 
@@ -128,8 +127,7 @@ def gibbs_plain_block(key, trace, cipher, B, pi, parity):
                       0.0,
                       logB[:, plain[right_idx]].T)
     logits = left + right + emis
-    from gen_tpu.ops import categorical_fast
-    proposal = categorical_fast(key, logits).astype(plain.dtype)
+    proposal = jax.random.categorical(key, logits).astype(plain.dtype)
     mask = (jnp.arange(T) % 2) == parity
     new_plain = jnp.where(mask, proposal, plain)
     new_trace, _, _, _ = trace.update(None, choicemap(plain=new_plain))

@@ -6,7 +6,7 @@ This is the fixed-shape twin of examples/gp_structure.py (reference
 incremental.jl:1-264). The eager version is structurally general (each tree
 its own pytree shape, like Gen.jl's tries) but runs at Python speed; this
 version trades bounded depth for a single compiled program over any number
-of vmapped chains — the TPU-native answer to the reference's
+of vmapped chains — the accelerator-native answer to the reference's
 ``incremental.jl`` static-IR + diff-propagation formulation (there the win
 is asymptotic reuse inside one chain; here XLA's fusion + DCE play that
 role and the throughput comes from batching chains).
@@ -24,7 +24,7 @@ the dynamic DSL):
   PCFG of the eager example — same posterior, fixed shapes.
 - The covariance is evaluated bottom-up over the heap with branchless
   ``where``-selection per node (all six kernel forms computed, one kept) —
-  no data-dependent control flow, everything on the VPU.
+  no data-dependent control flow, everything elementwise.
 - The subtree-replace move is GFI ``regenerate`` under a traced
   :class:`gen_tpu.MaskedSelection`: a branchless random walk picks a node
   ``r`` per chain, the selection's flags mark the whole heap region under
@@ -84,7 +84,7 @@ def slot_depth(c: int) -> int:
 def _onehot_at(idx, n):
     """(n,) one-hot of a traced 1-based slot index — arena reads use one-hot
     reductions, not gathers (dynamic_index under vmap lowers to per-element
-    gathers: 84x slower on TPU; see CLAUDE.md)."""
+    gathers, slow under vmap)."""
     return (jnp.arange(1, n + 1) == idx).astype(jnp.float32)
 
 

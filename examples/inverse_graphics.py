@@ -9,7 +9,7 @@ the true latents), test.jl:1-41 (simulate the trained proposal on an
 observed image to fill in the latents). This is the marquee "train a deep
 proposal for a simulator" Gen workload.
 
-TPU-native formulation:
+accelerator-native formulation:
 
 - The renderer is pure jnp (soft-edged square / cross / disc sprites,
   differentiable in pose, branchless in the DISCRETE shape code), so

@@ -7,7 +7,7 @@ marginal likelihood. For the LINEAR-Gaussian case the marginal is exact
 collapsed distribution ``gen_tpu.models.lgssm(T)`` gives HMC over the
 transition matrix on the exact collapsed posterior — every leapfrog step
 differentiates through the Kalman scan (jax.grad; a (T x D x D) matmul
-pipeline, MXU work).
+pipeline, matmul work).
 
 Validation: many-chain HMC posterior mean of the transition matrix A
 recovers the data-generating A, and the chains' collapsed log-ML agrees

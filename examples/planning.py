@@ -8,7 +8,7 @@ plan_path deterministic node, walk at constant speed, noisy per-step
 observations) and filtering.jl:1-120 (the distance-along-path HMM with
 slack, filtered with SMC).
 
-TPU-native planner design: the reference's RRT is a pointer-chasing
+accelerator-native planner design: the reference's RRT is a pointer-chasing
 sequential search (nearest-neighbor loops, data-dependent tree growth) —
 the worst possible shape for XLA. The same planning problem solves as a
 DENSE DYNAMIC PROGRAM: a value-iteration distance field from the goal over
@@ -100,7 +100,8 @@ def distance_field(occ, goal_xy):
 
 def greedy_path(field, start_xy):
     """T_PATH waypoints of steepest descent on the field, one-hot plane
-    reads only (dynamic gathers under vmap are the slow path on TPU)."""
+    reads only (dynamic gathers under vmap were the slow path on the
+    accelerator this was first written for)."""
     si = jnp.clip((start_xy[0] * G).astype(jnp.int32), 0, G - 1)
     sj = jnp.clip((start_xy[1] * G).astype(jnp.int32), 0, G - 1)
     ii = jax.lax.broadcasted_iota(jnp.int32, (G, G), 0)

@@ -60,7 +60,7 @@ PARAM_SEL = select("slope", "intercept", "inlier_log_std", "outlier_log_std")
 def gibbs_indicators(key, trace, xs, ys):
     """Exact Gibbs on all outlier indicators at once: they are conditionally
     independent given the parameters, so one vectorized sample + one fused
-    `update` replaces the reference's per-point loop (the TPU-idiomatic form
+    `update` replaces the reference's per-point loop (the accelerator-idiomatic form
     of examples/regression's Gibbs sweep)."""
     slope = trace["slope"]
     intercept = trace["intercept"]

@@ -3,7 +3,7 @@ model, then use it for importance sampling.
 
 Reference workload family: /root/reference/examples/train.jl (train! on a
 conditional proposal; the simple p/q pair at train.jl:7-12, 50-56).
-TPU-native formulation: the reference trains on one (x, z) pair per
+accelerator-native formulation: the reference trains on one (x, z) pair per
 gradient step through per-example ``generate`` calls; here the whole
 minibatch is one vmapped, jitted gradient of the mean conditional
 log-likelihood — the `lecture_batched` estimator as a single fused program.

@@ -1,4 +1,4 @@
-"""gen_tpu: a TPU-native probabilistic programming framework with
+"""gen_tpu: a accelerator-native probabilistic programming framework with
 programmable inference.
 
 A from-scratch JAX/XLA rebuild of the capabilities of Gen.jl
@@ -8,7 +8,7 @@ regenerate / choice_gradients / param_gradients), hierarchical choice maps
 and selections, combinators (Map=vmap, Unfold=scan, Switch, Mixtures), and a
 programmable inference library (IS, MH, involutive MCMC, HMC/MALA/NUTS,
 SMC/PMMH, BBVI/VIMCO, amortized training) that vectorizes over chains and
-particles with ``vmap`` and shards over TPU meshes with ``pjit``/collectives.
+particles with ``vmap`` and shards over device meshes with ``pjit``/collectives.
 """
 
 from .address import Address

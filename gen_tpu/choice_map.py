@@ -1,7 +1,7 @@
 """ChoiceMap: hierarchical address → value maps.
 
 The universal currency for observations, constraints, proposed values, and
-discards — the TPU-native analogue of Gen.jl's ``ChoiceMap``
+discards — the array-native analogue of Gen.jl's ``ChoiceMap``
 (/root/reference/src/choice_map.jl). Two deliberate departures from the
 reference:
 

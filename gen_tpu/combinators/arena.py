@@ -1,5 +1,5 @@
 """UnfoldArena: fixed-capacity state-space traces with O(1), recompile-free
-extension — the TPU-native long-sequence story (SURVEY.md §5.7).
+extension — the accelerator-native long-sequence story (SURVEY.md §5.7).
 
 The plain :class:`~gen_tpu.combinators.unfold.UnfoldCombinator` has a
 static length, so a particle filter that extends the trace each step
@@ -51,8 +51,8 @@ class ArenaTrace(Trace):
 
     def last_state(self):
         # one-hot reduction instead of a dynamic gather: under vmap the
-        # gather lowers to per-particle scatter/gather ops that are slow on
-        # TPU; the masked sum is a pure VPU reduction.
+        # gather lowers to per-particle scatter/gather ops; the masked sum
+        # is a pure elementwise reduction.
         idx = jnp.maximum(self.t_active - 1, 0)
 
         def pick(x):

@@ -2,7 +2,7 @@
 arguments.
 
 Reference: /root/reference/src/modeling_library/map/ (510 LoC of per-method
-Julia loops). TPU-native design: every GFI method is ONE ``jax.vmap`` of the
+Julia loops). Design: every GFI method is ONE ``jax.vmap`` of the
 kernel's method over the element axis — simulate/generate/update/regenerate
 for N elements compile to a single batched XLA program, and the trace is a
 single pytree with a leading element axis (no per-element objects).

@@ -7,7 +7,7 @@ node's output; addresses are ``(idx, "production")`` / ``(idx,
 "aggregation")`` with the heap indexing ``child(parent, j) =
 (parent-1)*B + j + 1`` (recurse.jl:139-152).
 
-TPU-native design — the reference's dynamically-sized persistent hash maps
+Design — the reference's dynamically-sized persistent hash maps
 and priority-queue dirty propagation become a **bounded complete-tree
 arena**: every slot of a depth-``max_depth``, branch-``max_branch`` tree
 always exists in the trace; an *active* mask (driven by each production's

@@ -6,14 +6,14 @@ inlines 2·N kernel applications into the XLA graph (N = (B^D−1)/(B−1) heap
 slots) — compile time explodes for deep trees. This variant processes each
 tree LEVEL as one ``vmap`` batch: level d is a single batched production
 (resp. aggregation) application over its B^d slots, so the compiled graph is
-O(D) kernel bodies and the per-level work lands on the VPU/MXU as one fused
+O(D) kernel bodies and the per-level work lands on the vector and matrix units as one fused
 batch. Score/weight bookkeeping is identical, expressed with per-lane active
 masks; constraints with node-varying presence become MaskedValue lanes
 (gen_tpu.masked) so one compiled program serves every constraint pattern of
 the same address structure.
 
 Trace layout: per-level batched subtraces (leading axis B^d) instead of
-per-node tuples — the natural TPU representation (one array per address per
+per-node tuples — the natural array representation (one array per address per
 level).
 
 Measured compile time (CPU backend, binary-branch gaussian tree):

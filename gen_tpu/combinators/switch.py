@@ -7,7 +7,7 @@ directly in the trace (no extra address level), and an index *change* under
 (update_recurse_merge, switch/update.jl:13-60) with
 weight = generate_weight − prev_score (switch/update.jl:86-107).
 
-TPU-native design — two execution modes:
+Design — two execution modes:
 
 * **concrete index** (Python int): dispatch to one branch; trace wraps that
   branch's trace. Full reference semantics including index-change update/

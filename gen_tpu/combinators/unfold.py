@@ -4,7 +4,7 @@ Reference: /root/reference/src/modeling_library/unfold/ (530 LoC; kernel
 signature ``(t, state, params...) -> state``, args ``(T, init_state,
 params...)``, choices of step t under integer key t).
 
-TPU-native design: the chain is ONE ``lax.scan`` — simulate/generate/
+Design: the chain is ONE ``lax.scan`` — simulate/generate/
 update/assess for T steps compile to a single fused XLA loop with the trace
 stored time-major (leaves shaped (T, ...)). The reference's incremental
 "only revisit dirty steps" logic (unfold/update.jl:22-113) is replaced by

@@ -1,7 +1,7 @@
 """Vectorized choice maps: integer-keyed hierarchies stored as batched
 arrays.
 
-TPU-native analogue of Gen.jl's ``InternalVectorChoiceMap``
+array-native analogue of Gen.jl's ``InternalVectorChoiceMap``
 (/root/reference/src/choice_map.jl:820-877) and ``VectorTrace``
 (/root/reference/src/modeling_library/vector.jl). Instead of N per-element
 tries, a :class:`VectorChoiceMap` holds ONE inner choice map whose leaves

@@ -2,7 +2,7 @@
 effective sample size, and Monte-Carlo standard errors.
 
 No reference analogue: Gen.jl ships no convergence diagnostics (its tests
-compare posterior moments directly). A production many-chain TPU workflow
+compare posterior moments directly). A production many-chain accelerator workflow
 needs them — with 10^5 vmapped chains the whole point is cross-chain
 diagnostics. All functions are pure jnp on ``(draws, chains)`` arrays (or
 pytrees of them via :func:`summarize`), so they jit and run on-device:

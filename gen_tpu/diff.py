@@ -1,7 +1,7 @@
 """Change metadata ("diffs") threaded through incremental GFI operations.
 
 Analogue of Gen.jl's diff system (/root/reference/src/diff.jl:32-417). In the
-TPU rebuild diffs play a smaller role: under ``jit`` XLA's common
+JAX rebuild diffs play a smaller role: under ``jit`` XLA's common
 subexpression elimination and dead-code elimination recover most of what
 Gen's Julia-side incremental recomputation buys. Diffs still matter as
 *static* signals to combinators — e.g. Unfold's O(1) extension fast path

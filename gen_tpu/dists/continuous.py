@@ -5,7 +5,7 @@ Parameterizations follow the reference files in
 class). All ``logpdf``s sum over elements, so every distribution is
 "broadcasted" in the sense of the reference's ``broadcasted_normal``
 (normal.jl:69-78): a single address may hold an array of iid (elementwise)
-draws, which is the TPU-friendly way to express vectors of choices — one
+draws, which is the accelerator-friendly way to express vectors of choices — one
 address, one fused kernel, no per-element Python loop.
 
 Out-of-support handling uses the safe-where pattern so that ``jax.grad`` of
@@ -21,6 +21,8 @@ from jax.scipy.special import betaln, gammaln
 from .distribution import Distribution, _f, logsumexp2
 
 _HALF_LOG_2PI = 0.9189385332046727  # 0.5*log(2*pi)
+# f32 dots feeding a log density run at full f32 precision (not TF32)
+_HI = jax.lax.Precision.HIGHEST
 
 
 class Normal(Distribution):
@@ -62,7 +64,8 @@ class MvNormal(Distribution):
         alpha = jax.scipy.linalg.cho_solve((chol, True), d)
         logdet = 2.0 * jnp.sum(jnp.log(jnp.diagonal(chol)))
         k = mu.shape[-1]
-        return -0.5 * (jnp.dot(d, alpha) + logdet + k * 2.0 * _HALF_LOG_2PI)
+        return -0.5 * (jnp.dot(d, alpha, precision=_HI) + logdet
+                       + k * 2.0 * _HALF_LOG_2PI)
 
 
 class UniformContinuous(Distribution):
@@ -294,7 +297,7 @@ class PiecewisePoissonProcess(Distribution):
     (-inf if bounds are not ascending or an event falls outside
     [bounds[0], bounds[-1]]).
 
-    TPU-native notes: the event COUNT is part of the value's static shape,
+    accelerator-native notes: the event COUNT is part of the value's static shape,
     so the singleton is observation-oriented (the reference only ever
     observes this distribution). ``sample`` requires an instance built with
     an explicit ``max_events`` and returns a PADDED vector whose inactive
@@ -365,7 +368,7 @@ class NormalLinear(Distribution):
     computed from the Gram matrix ``G = [X|v]^T [X|v]``: with
     ``u = [beta; -1]``, the residual sum of squares is ``u^T G u``.
 
-    Why this matters on TPU: ``G`` depends only on the data ``(X, v)``, so
+    Why this matters on an accelerator: ``G`` depends only on the data ``(X, v)``, so
     under ``vmap`` over chains and ``lax.scan`` over MCMC/leapfrog steps
     (where ``X`` and the observed ``v`` are loop-invariant and unbatched)
     XLA hoists the O(n p^2) Gram computation out of the loop entirely and
@@ -390,9 +393,12 @@ class NormalLinear(Distribution):
     def logpdf(self, v, X, beta_, sigma):
         v, X, beta_, sigma = _f(v), _f(X), _f(beta_), _f(sigma)
         A = jnp.concatenate([X, v[:, None]], axis=1)
-        G = A.T @ A                      # data-only: hoisted out of vmap/scan
+        # data-only: hoisted out of vmap/scan. HIGHEST: a TF32 Gram (10-bit
+        # mantissa) would shift the residual sum of squares by far more
+        # than the accept ratios and moment gates tolerate
+        G = jnp.matmul(A.T, A, precision=_HI)
         u = jnp.concatenate([beta_, -jnp.ones((1,), dtype=beta_.dtype)])
-        rss = u @ (G @ u)
+        rss = jnp.dot(u, jnp.dot(G, u, precision=_HI), precision=_HI)
         n = X.shape[0]
         return -0.5 * rss / (sigma * sigma) - n * (jnp.log(sigma)
                                                    + _HALF_LOG_2PI)

@@ -190,7 +190,7 @@ def enum_dist(enum_cls, base: Distribution) -> RelabeledDistribution:
     Int(instance) lookup). Here ``base`` is an index distribution over
     positions 0..len(enum_cls)-1 in definition order, and samples are the
     members' ``.value`` as int arrays (traced-safe — Python Enum objects
-    cannot be traced values on TPU); recover the member host-side with
+    cannot be traced values on an accelerator); recover the member host-side with
     ``enum_cls(int(v))``. Duplicate values sum their index mass, as in the
     reference's RelabeledDistribution."""
     labels = jnp.asarray([m.value for m in enum_cls])

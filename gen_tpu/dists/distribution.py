@@ -5,7 +5,7 @@ Analogue of Gen.jl's ``Distribution{T}`` interface
 ``random``→``sample`` (with explicit PRNG key), ``logpdf``, ``logpdf_grad``,
 ``has_output_grad``, ``has_argument_grads``, ``is_discrete``.
 
-TPU-native design notes:
+Design notes:
 
 * ``logpdf`` must be pure jnp code — it is traced under jit/vmap/grad and is
   the per-choice hot op; XLA fuses the whole model's logpdf sum into a few

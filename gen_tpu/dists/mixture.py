@@ -6,7 +6,7 @@ args = (weights, *stacked_args) with each stacked arg carrying a leading K
 axis. ``HeterogeneousMixture(dists)``: one component per distribution, args
 = (weights, *flat_args...).
 
-TPU-native: the K component logpdfs are one ``vmap`` + ``logsumexp``;
+accelerator-native: the K component logpdfs are one ``vmap`` + ``logsumexp``;
 gradients come from XLA autodiff of that expression (the reference
 hand-derives the same posterior-responsibility formulas at
 mixture.jl:84-140)."""

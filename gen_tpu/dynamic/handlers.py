@@ -1,6 +1,6 @@
 """Effect handlers: one per GFI operation.
 
-The TPU-native replacement for Gen.jl's handler-state interpreter
+The accelerator-native replacement for Gen.jl's handler-state interpreter
 (/root/reference/src/dynamic/dynamic.jl:69-158 and the per-operation
 ``traceat`` methods in simulate.jl/generate.jl/update.jl/regenerate.jl/
 assess.jl). A model body is plain Python + jnp code; every ``dist(args) @

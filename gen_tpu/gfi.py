@@ -6,7 +6,7 @@ object — traced-interpreter model, combinator, or hand-written — implements
 the same trace interface, and every inference algorithm is written against
 it.
 
-TPU-native departures from the reference:
+accelerator-native departures from the reference:
 
 * **Explicit randomness.** Every sampling method takes a ``jax.random`` key
   as its first argument; there is no global RNG. This is what makes

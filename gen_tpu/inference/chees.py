@@ -8,7 +8,7 @@ Monte Carlo") instead adapts ONE shared trajectory length from cross-chain
 statistics — the Change in the Estimator of the Expected Square criterion —
 with a uniform jitter per iteration. Every chain runs the same number of
 leapfrog steps, so the many-chain program is perfectly shaped for
-vmap/TPU: this is the modern accelerator-native alternative to NUTS.
+vmap and accelerators: this is the modern accelerator-native alternative to NUTS.
 
 Per iteration (all chains lockstep):
   1. jitter: L_m = max(1, round(u_m · T / eps)), u_m ~ U(0,1) (shared)

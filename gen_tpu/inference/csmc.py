@@ -10,7 +10,7 @@ invariant. PMMH explores parameters with pseudo-marginal noise; PG
 resamples the whole latent path as a Gibbs block, which is what you want
 for state inference and for Gibbs-within-PG parameter updates.
 
-TPU-native design: built on the genealogy formulation
+Design: built on the genealogy formulation
 (:func:`gen_tpu.inference.smc.smc_genealogy`) — the whole conditional
 filter is ONE compiled ``lax.scan``; the reference lane is expressed with
 :class:`~gen_tpu.masked.MaskedValue` constraints (flag = lane==0), so lane

@@ -2,7 +2,7 @@
 
 No reference analogue (Gen.jl answers discrete posteriors by MCMC/SMC; its
 tests hand-roll enumeration oracles, e.g. the HMM forward check in
-test/inference/particle_filter.jl). On TPU, exact enumeration IS a
+test/inference/particle_filter.jl). On an accelerator, exact enumeration IS a
 vectorization problem: the full Cartesian product of the latent supports
 is one ``vmap`` of the key-free ``assess`` over a static grid — a few
 million grid points score in one fused program, so "small discrete world"

@@ -4,7 +4,7 @@ Reference: /root/reference/src/inference/hmc.jl (leapfrog over the
 ``to_array``-flattened selected choices, gradients from
 ``choice_gradients``, standard-normal momenta, MH-corrected accept).
 
-TPU-native design: the potential is extracted ONCE as a flat closed-over
+Design: the potential is extracted ONCE as a flat closed-over
 ``logp`` (:class:`~gen_tpu.inference.target.FlatTarget`); the L-step
 leapfrog is a ``lax.scan`` over value-and-grad of that potential — a single
 fused XLA loop with no trace reconstruction inside (the reference re-runs
@@ -34,7 +34,7 @@ def _momenta_score(m):
 def hmc(key, trace: Trace, selection: Selection, L: int = 10,
         eps: float = 0.1, inv_mass_diag=None):
     """One HMC update on the selected addresses (optionally with a diagonal
-    mass matrix — a TPU-side extension; the reference uses identity mass,
+    mass matrix — an extension; the reference uses identity mass,
     hmc.jl:1-9). Returns (new_trace, accepted)."""
     target = FlatTarget(trace, selection)
     values0 = target.flat0
@@ -73,7 +73,7 @@ def hmc(key, trace: Trace, selection: Selection, L: int = 10,
 def hmc_chains(key, target: FlatTarget, values0, n_steps: int, L: int = 10,
                eps: float = 0.1, inv_mass_diag=None, collect=None,
                unroll: bool = True, eps_jitter: float = 0.2,
-               teleport_after: int = 0):
+               teleport_after: int = 0, draws=None):
     """Many-chain HMC entirely in the flat coordinate space: ``values0`` is
     ``(chains, d)`` and every step is one vmapped full HMC update (momenta,
     L leapfrogs, MH accept) inside a ``lax.scan`` over steps.
@@ -81,9 +81,7 @@ def hmc_chains(key, target: FlatTarget, values0, n_steps: int, L: int = 10,
     This is the fast path for very large chain counts: no trace
     reconstruction inside the loop, samples collected step-major
     (``(steps, chains, ...)`` — the layout a scan writes contiguously), and
-    the leapfrog loop unrolled so XLA fuses across leapfrog steps (measured
-    on v5e at 524k chains x L=10: 2.32 ms/step vs 5.38 ms for the
-    per-step ``hmc()`` + trace-rebuild path).
+    the leapfrog loop unrolled so XLA fuses across leapfrog steps.
 
     CAVEAT (same as the nuts_fsm engine): ``target`` closes over the
     exemplar trace's UNselECTED choices, so every chain is conditioned on
@@ -93,7 +91,7 @@ def hmc_chains(key, target: FlatTarget, values0, n_steps: int, L: int = 10,
 
     ``eps_jitter``: per-step multiplicative jitter of the step size,
     ``eps_m = eps * U(1-j, 1+j)`` (one scalar draw per step, shared by all
-    chains — free on the VPU). Fixed trajectory lengths RESONATE on
+    chains — free). Fixed trajectory lengths RESONATE on
     (near-)Gaussian targets: at a full oscillation period (L*eps = 2*pi*sd)
     proposals return to their start, and at a half period they are the
     antithetic reflection 2*mu - x, so chains flip between two points
@@ -111,6 +109,12 @@ def hmc_chains(key, target: FlatTarget, values0, n_steps: int, L: int = 10,
     they reject every proposal and no warmup length fixes it). Run a warmup
     call with ``teleport_after=10``, then a sampling call without.
 
+    ``draws=(step_sizes (n_steps,), z (n_steps, chains, d), u (n_steps,
+    chains))`` replaces the random step sizes, standard-normal momentum
+    draws and accept uniforms with the given numbers (``key`` then only
+    feeds ``teleport_after``) — how the fused kernel is compared exactly
+    with this sampler.
+
     ``collect(values) -> pytree`` maps the per-step state to what is
     recorded (default: the raw ``(chains, d)`` values). Returns
     ``(values, collected, accepts)`` with ``accepts`` of shape
@@ -124,13 +128,18 @@ def hmc_chains(key, target: FlatTarget, values0, n_steps: int, L: int = 10,
                 if inv_mass_diag is None else jnp.asarray(inv_mass_diag))
     sqrt_mass = sqrt_mass_safe(inv_mass)
 
-    def step(carry, step_key):
+    def step(carry, xs):
         values, logp, grad, streak = carry
+        step_key, given = xs
         k_mom, k_acc, k_jit, k_tel = jax.random.split(step_key, 4)
-        eps_m = eps * jax.random.uniform(
-            k_jit, (), values0.dtype, 1.0 - eps_jitter, 1.0 + eps_jitter)
-        momenta0 = sqrt_mass * jax.random.normal(k_mom, values.shape,
-                                                 dtype=values.dtype)
+        if given is None:
+            eps_m = eps * jax.random.uniform(
+                k_jit, (), values0.dtype, 1.0 - eps_jitter, 1.0 + eps_jitter)
+            z = jax.random.normal(k_mom, values.shape, dtype=values.dtype)
+            u = jax.random.uniform(k_acc, values.shape[:1])
+        else:
+            eps_m, z, u = given
+        momenta0 = sqrt_mass * z
 
         def leapfrog(c, _):
             v, m, g, _lp = c
@@ -146,7 +155,7 @@ def hmc_chains(key, target: FlatTarget, values0, n_steps: int, L: int = 10,
         kin = lambda m: 0.5 * jnp.sum(m * (inv_mass * m), axis=-1)
         alpha = lp_final - logp - kin(m_new) + kin(momenta0)
         alpha = jnp.where(jnp.isnan(alpha), -jnp.inf, alpha)
-        acc = jnp.log(jax.random.uniform(k_acc, alpha.shape)) < alpha
+        acc = jnp.log(u) < alpha
         values = jnp.where(acc[:, None], v_new, values)
         logp = jnp.where(acc, lp_final, logp)
         grad = jnp.where(acc[:, None], g_new, grad)
@@ -164,7 +173,8 @@ def hmc_chains(key, target: FlatTarget, values0, n_steps: int, L: int = 10,
     logp0, grad0 = vg(values0)
     streak0 = jnp.zeros(values0.shape[0], jnp.int32)
     (values, _, _, _), (collected, accepts) = jax.lax.scan(
-        step, (values0, logp0, grad0, streak0), jax.random.split(key, n_steps))
+        step, (values0, logp0, grad0, streak0),
+        (jax.random.split(key, n_steps), draws))
     return values, collected, accepts
 
 
@@ -175,11 +185,10 @@ def hmc_chain(key, trace: Trace, selection: Selection, n_steps: int,
     whole-trace select per step (those cost more than the leapfrogs for
     small models). Returns (final_trace, samples (n_steps, d), accepts).
 
-    vmap over (key, trace) for many chains — though note: on TPU at very
-    large chain counts, scan-of-vmap (a jitted per-step `hmc` inside your
-    own lax.scan, as bench.py does) measured ~4x faster than
-    vmap-of-this-scan; prefer hmc_chain for single/few chains or when the
-    flat dimension is large."""
+    vmap over (key, trace) for many chains — though at very large chain
+    counts :func:`hmc_chains` (scan-of-vmap, samples written step-major)
+    is the better layout; prefer hmc_chain for single/few chains or when
+    the flat dimension is large."""
     target = FlatTarget(trace, selection)
     values0 = target.flat0
     logp0, grad0 = target.value_and_grad(values0)
@@ -188,7 +197,7 @@ def hmc_chain(key, trace: Trace, selection: Selection, n_steps: int,
         values, logp, grad = carry
         # fold per-step keys from the chain key: O(1) key material even
         # under vmap (pre-splitting n_steps keys per chain materializes a
-        # (chains, steps) key tensor in HBM)
+        # (chains, steps) key tensor in device memory)
         k_mom, k_acc = jax.random.split(jax.random.fold_in(key, i))
         momenta0 = jax.random.normal(k_mom, values.shape, dtype=values.dtype)
 

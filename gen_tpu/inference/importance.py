@@ -1,6 +1,6 @@
 """Importance sampling & resampling.
 
-Reference: /root/reference/src/inference/importance.jl:1-110. TPU-native
+Reference: /root/reference/src/inference/importance.jl:1-110. accelerator-native
 design: the N particles are one ``vmap`` axis — ``generate`` runs as a
 single batched XLA program, and the weight normalization is one fused
 logsumexp. On a device mesh the same code shards the particle axis (see

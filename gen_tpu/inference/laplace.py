@@ -3,7 +3,7 @@ log-evidence estimate.
 
 No reference analogue: Gen.jl ships ``map_optimize`` (the mode) but nothing
 that turns the mode into an approximate posterior / marginal likelihood.
-On TPU the missing pieces are one ``jax.hessian`` of the same key-free
+On an accelerator the missing pieces are one ``jax.hessian`` of the same key-free
 score function the gradients already use, so the full approximation is a
 few fused programs:
 

@@ -2,20 +2,20 @@
 
 Reference semantics: Gen.jl's HMC takes a scalar/diagonal metric only
 (/root/reference/src/inference/hmc.jl:25-73); a dense metric is the
-standard extension (Stan's dense_e). TPU-native twist: instead of teaching
-the fused Pallas kernels (ops/hmc_fused.py, ops/nuts_fused.py) a dense
-M^-1 — triangular solves per leapfrog — we WHITEN THE COORDINATES once:
+standard extension (Stan's dense_e). Instead of teaching the fused
+samplers (ops/hmc_fused.py, ops/nuts_fused.py) a dense M^-1 — triangular
+solves per leapfrog — we WHITEN THE COORDINATES once:
 
   Sigma ~ cross-chain covariance of the warmed population, Sigma = L L^T
   y = L^-1 x  =>  pi_y(y) = pi_x(L y) (+ const log|L|),
 
-and run the existing kernels on ``pi_y`` with IDENTITY mass. HMC on y with
+and run the existing samplers on ``pi_y`` with IDENTITY mass. HMC on y with
 identity mass is exactly HMC on x with dense mass M = (L L^T)^-1 = Sigma^-1
 (the optimal Gaussian-approximation metric). The wrapped logp's ``L @ y``
 matmul stages through :mod:`gen_tpu.ops.scalarize` like any other residual
 ``dot_general`` (unrolled multiply-adds; L's d^2 entries ride in as staged
-residual constants), so the kernels are untouched — no in-kernel
-triangular solves, no new Mosaic surface.
+residual constants), so the kernel is untouched — no in-kernel
+triangular solves.
 
 Workflow (see benchmarks/bench_hard_targets.py ``mass="dense"`` and
 ``sample_posterior(..., mass="dense")``):
@@ -25,7 +25,7 @@ Workflow (see benchmarks/bench_hard_targets.py ``mass="dense"`` and
 3. short second ChEES warmup on ``whiten_logp(logp, L)`` with
    ``adapt_mass=False`` (the whitened target is ~isotropic; only the step
    size / trajectory length need re-adapting)
-4. fused kernel on the whitened target, identity mass
+4. fused sampler on the whitened target, identity mass
 5. ``unwhiten(L, draws)`` back to x.
 """
 
@@ -34,6 +34,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+# whitening matmuls feed the log density: full f32 precision, not TF32
+_HI = jax.lax.Precision.HIGHEST
+
 
 def dense_mass_chol(flat, jitter_rel: float = 1e-5):
     """Cholesky factor L of the cross-chain covariance (+ relative jitter):
@@ -41,7 +44,7 @@ def dense_mass_chol(flat, jitter_rel: float = 1e-5):
     flat = jnp.asarray(flat, jnp.float32)
     n, d = flat.shape
     x = flat - jnp.mean(flat, axis=0)
-    sigma = (x.T @ x) / jnp.maximum(n - 1, 1)
+    sigma = jnp.matmul(x.T, x, precision=_HI) / jnp.maximum(n - 1, 1)
     jitter = jitter_rel * (jnp.trace(sigma) / d)
     return jnp.linalg.cholesky(sigma + jitter * jnp.eye(d, dtype=sigma.dtype))
 
@@ -52,7 +55,7 @@ def whiten_logp(logp, L):
     L = jnp.asarray(L)
 
     def logp_w(y):
-        return logp(L @ y)
+        return logp(jnp.matmul(L, y, precision=_HI))
 
     return logp_w
 
@@ -66,7 +69,7 @@ def whiten(L, x):
 def unwhiten(L, y):
     """y -> x = L y; works on (chains, d) and (steps, chains, d)."""
     y = jnp.asarray(y)
-    return jnp.einsum("ij,...j->...i", L, y)
+    return jnp.einsum("ij,...j->...i", L, y, precision=_HI)
 
 
 # -- diagonal + low-rank metric ----------------------------------------------
@@ -74,8 +77,7 @@ def unwhiten(L, y):
 # residual cap (ops/scalarize.py, 1024 scalars) limits that to d <~ 30.
 # The production-standard fallback is diag + rank-k: Sigma ~ D^1/2 (s0^2 I
 # + U diag(lam_k - s0^2) U^T) D^1/2, whose whitening transform costs
-# d + d*k + k + 1 staged scalars and covers the kernels' full dimension
-# envelope (ops/hmc_fused.py:check_vmem_envelope).
+# d + d*k + k + 1 staged scalars.
 
 def lowrank_mass_factors(flat, k: int, inv_mass_diag=None):
     """Estimate a diag + rank-k metric from the warmed population.
@@ -106,17 +108,19 @@ def lowrank_transform(sqrt_d, U, sk, s0, y):
     """x = A y with A = diag(sqrt_d) (s0 I + U diag(sk - s0) U^T):
     A A^T = diag(sqrt_d) (s0^2 I + U diag(sk^2 - s0^2) U^T) diag(sqrt_d)
     = the estimated metric. Works on (..., d)."""
-    inner = jnp.einsum("dk,...d->...k", U, y)
-    z = s0 * y + jnp.einsum("dk,...k->...d", U, (sk - s0) * inner)
+    inner = jnp.einsum("dk,...d->...k", U, y, precision=_HI)
+    z = s0 * y + jnp.einsum("dk,...k->...d", U, (sk - s0) * inner,
+                            precision=_HI)
     return sqrt_d * z
 
 
 def lowrank_inverse_transform(sqrt_d, U, sk, s0, x):
     """y = A^-1 x (A is simultaneously diagonalized by (I, U))."""
     z = x / jnp.maximum(sqrt_d, 1e-12)
-    inner = jnp.einsum("dk,...d->...k", U, z)
+    inner = jnp.einsum("dk,...d->...k", U, z, precision=_HI)
     return z / s0 + jnp.einsum("dk,...k->...d", U,
-                               (1.0 / sk - 1.0 / s0) * inner)
+                               (1.0 / sk - 1.0 / s0) * inner,
+                               precision=_HI)
 
 
 def lowrank_whiten_logp(logp, sqrt_d, U, sk, s0):
@@ -130,7 +134,7 @@ def lowrank_whiten_logp(logp, sqrt_d, U, sk, s0):
     return logp_w
 
 
-# -- partial selections (round 5, VERDICT r4 item 9) --------------------------
+# -- partial selections ---------------------------------------------------------
 # With a partial selection the flat engines freeze the unselected
 # coordinates (inv_mass 0, per-chain conditioning values riding in kernel
 # state). A structured metric must then whiten ONLY the free subspace and

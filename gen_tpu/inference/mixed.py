@@ -6,7 +6,7 @@ selection-MH regenerates any selected address
 example interleaves per-point discrete outlier moves with continuous
 moves in one loop
 (/root/reference/examples/regression/static_mh.jl:28-38,60-70). The
-TPU-native equivalent composes the two *exact* kernels this package
+accelerator-native equivalent composes the two *exact* kernels this package
 already has: NUTS over the continuous block (conditioning on the current
 discrete values) alternating with rejection-free enumerative Gibbs over
 every finite-support discrete address (the :mod:`gen_tpu.inference.gibbs`
@@ -315,11 +315,11 @@ def mixed_warmup_and_sample(key, trace, cont_sel: Selection,
 
 # -- fused mixed driver (round-5 stretch of VERDICT r4 item 1) ---------------
 # The XLA alternating driver above is fully generic; THIS path runs the
-# continuous block in the fused pair-scheduled Pallas NUTS kernel, with
-# each chain's CURRENT discrete values riding in the kernel state as
-# frozen coordinates (inverse mass 0 — the round-3 Gibbs-within-NUTS
-# conditioning mechanism, validated vs exact enumeration in
-# tests/test_nuts_fused.py). Between kernel chunks the discrete block is
+# continuous block in many-chain pair-scheduled FSM-NUTS
+# (ops/nuts_fused.py), with each chain's CURRENT discrete values riding in
+# the chain state as frozen coordinates (inverse mass 0 — the
+# Gibbs-within-NUTS conditioning mechanism, validated vs exact
+# enumeration in tests/test_nuts_fused.py). Between chunks the discrete block is
 # refreshed by the exact enumerative Gibbs sweep (vmapped over chains on
 # rebuilt traces). Requires the EXTENDED flat universe's assess-logp to
 # stage through ops.scalarize with the discrete values as (cast) float
@@ -415,7 +415,7 @@ def mixed_fused_sample(key, traces, one_trace, sites, *, num_warmup=400,
     # Gibbs only at its few segment boundaries, so chains enter sampling
     # still drifting in the joint (continuous, discrete) space — half a
     # sampling budget of uncollected per-chunk alternation finishes the
-    # job at full kernel speed (measured on the GMM: without it the
+    # job at full speed (measured on the GMM: without it the
     # cross-chain variance ran ~50% high)
     n_burn_outer = max(2, (ticks_total // 2) // chunk)
     for j in range(n_burn_outer):
@@ -423,7 +423,7 @@ def mixed_fused_sample(key, traces, one_trace, sites, *, num_warmup=400,
         flat, hist, hcnt, cnt, _stats = nuts_chains_fused_chunked(
             k_n, target.logp, flat, num_ticks=chunk, eps=eps,
             max_depth=max_depth, inv_mass_diag=winfo["inv_mass"],
-            collect_idx=0, paired=True)
+            collect_idx=0)
         del hist, hcnt
         flat = gibbs_refresh(k_g, flat)
     draws_chunks = []
@@ -433,7 +433,7 @@ def mixed_fused_sample(key, traces, one_trace, sites, *, num_warmup=400,
         flat, hist, hcnt, cnt, stats = nuts_chains_fused_chunked(
             k_n, target.logp, flat, num_ticks=chunk, eps=eps,
             max_depth=max_depth, inv_mass_diag=winfo["inv_mass"],
-            collect_idx=None, paired=True)
+            collect_idx=None)
         m = int(jnp.min(cnt))
         if m >= 1:
             draws_chunks.append(extract_completed_draws(hist, hcnt, m))

@@ -52,8 +52,7 @@ def nuts_fsm(key, value_and_grad, theta0, step_size, num_ticks: int,
              max_depth: int = 10, inv_mass_diag=None,
              num_sample_slots: int = 256,
              divergence_threshold: float = 1000.0,
-             injected_rng=None, collect_idx=None,
-             ckpt_bf16: bool = False) -> FSMResult:
+             injected_rng=None, collect_idx=None) -> FSMResult:
     """Run ``num_ticks`` global leapfrog ticks of FSM-NUTS from ``theta0``.
 
     One chain; ``vmap`` over (key, theta0[, step_size, inv_mass_diag]) for
@@ -64,24 +63,14 @@ def nuts_fsm(key, value_and_grad, theta0, step_size, num_ticks: int,
 
     ``injected_rng``: optional ``(z (ticks, dim), u_dir0, u_take, u_bias,
     u_dir — each (ticks,))`` host-side randomness replacing the per-tick
-    PRNG draws — the hook that makes the fused Pallas kernel
-    (ops/nuts_fused.py) exactly comparable to this reference.
+    PRNG draws, for exact comparison with another implementation of the
+    same tick semantics.
     ``collect_idx``: if set, additionally returns per-tick
     ``(cur_theta[collect_idx], completed_count)`` as a second output
-    (two ``(ticks,)`` arrays — the fused kernel's cheap static-index
-    collection streams; the count stream marks trajectory-end ticks so
+    (two ``(ticks,)`` arrays — cheap static-index collection streams;
+    the count stream marks trajectory-end ticks so
     each completed draw can be extracted exactly once). The string
     ``"all"`` collects the whole ``(ticks, dim)`` position history.
-
-    ``ckpt_bf16``: round the U-turn checkpoint stores (``r_ckpt``,
-    ``rsum_ckpt``) to bf16 via :func:`gen_tpu.utils.bf16_round` — the
-    semantics of the fused Pallas kernel, which packs each checkpoint
-    pair bf16x2 into one plane to halve its VMEM cost. Checkpoints feed
-    only the block-end U-turn dot products (a deterministic,
-    trajectory-reversal-symmetric stopping rule), so rounding them
-    changes WHEN trajectories stop, never the invariant distribution;
-    validated distribution-level in tests/test_nuts_fused.py and
-    benchmarks/bench_nuts_fused.py.
     """
     dim = theta0.shape[0]
     dt = theta0.dtype
@@ -170,19 +159,12 @@ def nuts_fsm(key, value_and_grad, theta0, step_size, num_ticks: int,
             s = dict(s, **{k_: sel(fresh, v_, s[k_])})
 
         n = s["sub_n"]
-        # checkpoint store rounding: identity in f32 mode, bf16 (the fused
-        # kernel's packed-checkpoint semantics) when ckpt_bf16
-        if ckpt_bf16:
-            from ..utils import bf16_round
-            _ckround = lambda x: bf16_round(x).astype(x.dtype)
-        else:
-            _ckround = lambda x: x
         # -- block-start rho checkpoints (level k when n % 2^k == 0) ------
         r_ck, rs_ck = s["r_ckpt"], s["rsum_ckpt"]
         for k in range(1, max_depth + 1):
             starts = (n % (2 ** k)) == 0
             rs_ck = rs_ck.at[k].set(jnp.where(starts,
-                                              _ckround(s["rho_sub"]),
+                                              s["rho_sub"],
                                               rs_ck[k]))
 
         # -- ONE leapfrog (the only gradient work; never masked out) ------
@@ -198,7 +180,7 @@ def nuts_fsm(key, value_and_grad, theta0, step_size, num_ticks: int,
         # matching comment + measurement in nuts.py::build_subtree)
         for k in range(1, max_depth + 1):
             starts = (n % (2 ** k)) == 0
-            r_ck = r_ck.at[k].set(jnp.where(starts, _ckround(r), r_ck[k]))
+            r_ck = r_ck.at[k].set(jnp.where(starts, r, r_ck[k]))
 
         # Welford over every leapfrog position (dense scale statistics for
         # mass-matrix warmup — completed samples are too sparse when
@@ -369,16 +351,15 @@ def nuts_fsm_paired(key, value_and_grad, theta0, step_size,
                     num_pairs: int, max_depth: int = 10,
                     inv_mass_diag=None,
                     divergence_threshold: float = 1000.0,
-                    injected_rng=None, collect_idx=0,
-                    ckpt_bf16: bool = True):
+                    injected_rng=None, collect_idx=0):
     """Pair-scheduled FSM-NUTS: TWO leapfrogs per tick, with subtree
-    starts aligned to pair boundaries — the XLA reference twin of the
-    fused pair kernel (``ops.nuts_fused.nuts_chains_fused(paired=True)``).
+    starts aligned to pair boundaries — the engine that
+    :func:`gen_tpu.ops.nuts_fused.nuts_chains_fused` vmaps over chains.
 
     Why pairs: in the 1-leapfrog-per-tick FSM, the per-tick bookkeeping
     (power-of-two checkpoint writes, per-level U-turn ends-tests, merge
-    logic) executes branchlessly EVERY tick and is ~half the kernel's op
-    count. But checkpoint writes can only matter at even in-subtree
+    logic) executes branchlessly EVERY tick and is about half of a
+    tick's operations. But checkpoint writes can only matter at even in-subtree
     positions (``sub_n % 2^k == 0, k >= 1``) and ends-tests only at odd
     ones (``(sub_n+1) % 2^k == 0``) — so if every subtree START is
     aligned to a pair boundary, the first slot of a pair needs no
@@ -422,12 +403,6 @@ def nuts_fsm_paired(key, value_and_grad, theta0, step_size,
 
     def kinetic(r):
         return 0.5 * jnp.dot(r, inv_mass * r)
-
-    if ckpt_bf16:
-        from ..utils import bf16_round
-        _ckround = lambda x: bf16_round(x).astype(x.dtype)
-    else:
-        _ckround = lambda x: x
 
     f0 = theta0[0] * 0
     i0 = f0.astype(jnp.int32)
@@ -498,9 +473,9 @@ def nuts_fsm_paired(key, value_and_grad, theta0, step_size,
         r_ck, rs_ck = s["r_ckpt"], s["rsum_ckpt"]
         for k in range(1, max_depth + 1):
             starts = (n % (2 ** k)) == 0
-            rs_ck = rs_ck.at[k].set(jnp.where(starts, _ckround(rs_pre),
+            rs_ck = rs_ck.at[k].set(jnp.where(starts, rs_pre,
                                               rs_ck[k]))
-            r_ck = r_ck.at[k].set(jnp.where(starts, _ckround(r1),
+            r_ck = r_ck.at[k].set(jnp.where(starts, r1,
                                             r_ck[k]))
 
         delta1 = (lp1 - kinetic(r1)) - s["energy0"]

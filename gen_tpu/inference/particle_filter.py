@@ -1,7 +1,7 @@
 """Particle filtering / sequential Monte Carlo.
 
 Reference: /root/reference/src/inference/particle_filter.jl (216 LoC).
-TPU-native design: the particle axis is a ``vmap`` axis — ``init`` and each
+Design: the particle axis is a ``vmap`` axis — ``init`` and each
 ``particle_filter_step`` compile to one batched XLA program; resampling is a
 fused gather. With Unfold models the step rides the O(1) trace-extension
 fast path, so per-step cost is independent of history length. On a device
@@ -130,12 +130,11 @@ def _resample_parents(key, log_normalized_weights, method: str):
             return jnp.clip(_rank_merge_parents(cdf / cdf[-1], us), 0, n - 1)
         return jax.random.categorical(key, log_normalized_weights, shape=(n,))
     if method == "systematic":
-        # single uniform, stratified positions — O(N), deterministic layout,
-        # collective-friendly; fused Pallas kernel on TPU (ops/resample.py)
-        from ..ops.resample import on_tpu, systematic_resample
+        # single uniform, stratified positions — deterministic layout,
+        # collective-friendly (ops/resample.py)
+        from ..ops.resample import systematic_resample
         u = jax.random.uniform(key)
-        return systematic_resample(log_normalized_weights, u,
-                                   use_pallas=on_tpu())
+        return systematic_resample(log_normalized_weights, u)
     if method == "residual":
         w = jnp.exp(log_normalized_weights)
         counts = jnp.floor(w * n).astype(jnp.int32)

@@ -12,7 +12,7 @@ the largest importance ratios and
     k >= 0.7 means the proposal is too narrow and the estimate should not
     be trusted, no matter how many samples were drawn.
 
-TPU-native: everything is fixed-shape jnp given a static sample count —
+accelerator-native: everything is fixed-shape jnp given a static sample count —
 one sort, a fixed-size tail slice, and the Zhang & Stephens (2009)
 profile-posterior GPD fit as a small batched reduction — so `psis` jits
 and composes with vmapped/sharded importance sampling.

@@ -1,9 +1,9 @@
 """Preemption-safe, self-healing inference driving (SURVEY §5.3: failure
 detection / elastic recovery — the reference has no analogue; this is the
-TPU-fleet-native version of the subsystem).
+fleet-native version of the subsystem).
 
 Long many-chain runs on shared accelerators die for reasons that have
-nothing to do with the math: preemption, host OOM, a flaky tunnel. The
+nothing to do with the math: preemption, host OOM, a lost connection. The
 driver here makes any segment-shaped sampler both
 
 - **resumable**: the run is a deterministic schedule of segments with keys

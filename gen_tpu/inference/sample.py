@@ -11,7 +11,7 @@ examples/ repeats the pattern). Here the whole pipeline —
   -> per-address sample arrays (draws, chains, ...) + rank-normalized
      split-R-hat / bulk- and tail-ESS / MCSE per coordinate
 
-— is one function call, the TPU-native equivalent of Stan/NumPyro's
+— is one function call, the equivalent of Stan/NumPyro's
 ``mcmc.run``. Programmable inference remains available underneath; this is
 the front door for the common case.
 """
@@ -115,48 +115,23 @@ def np_idx(sel_idx):
 
 def _auto_engine(one_trace, observations, selection,
                  num_chains) -> Tuple[str, str]:
-    """``engine="auto"`` dispatch: the fused Pallas FSM-NUTS engine
-    (1000x-class throughput at scale) whenever its preconditions hold —
-    >= 2 chains for ChEES warmup and the model's assess-logp stages
-    through :func:`gen_tpu.ops.scalarize.stage_scalarized` (e.g. no
-    ``while_loop``); otherwise per-chain XLA NUTS, which has no
-    preconditions. Partial selections dispatch to the fused engine too
-    (frozen-coordinate conditioning — same per-chain semantics as
-    ``nuts``); the staging probe always runs over the full flat universe,
-    which is what the fused engine samples.
+    """``engine="auto"`` dispatch: the many-chain FSM-NUTS engine
+    (``nuts_fused``) whenever its preconditions hold — >= 2 chains for
+    ChEES warmup and a full flat universe to sample over; otherwise
+    per-chain NUTS, which has no preconditions. Partial selections
+    dispatch to ``nuts_fused`` too (frozen-coordinate conditioning — same
+    per-chain semantics as ``nuts``).
 
     Returns ``(engine, reason)`` — the reason lands in
-    ``info["engine_reason"]`` and, on a fallback to the XLA path, in a
-    one-line warning: the fused-vs-XLA gap is ~3 orders of magnitude at
-    scale, and a silent fallback would be a silent cliff (VERDICT r3)."""
+    ``info["engine_reason"]``."""
     if num_chains < 2:
-        return "nuts", ("num_chains < 2: the fused engine warms up with "
-                        "cross-chain ChEES statistics")
+        return "nuts", ("num_chains < 2: the nuts_fused engine warms up "
+                        "with cross-chain ChEES statistics")
     try:
-        full_sel, _ = _default_selection(one_trace, observations)
+        _default_selection(one_trace, observations)
     except ValueError as e:
         return "nuts", f"flat-universe layout unavailable: {e}"
-    from ..ops.scalarize import stage_scalarized
-    from .target import FlatTarget
-    target = FlatTarget(one_trace, full_sel)
-    d = int(one_trace.get_choices().filter(full_sel).to_array().shape[0])
-    try:
-        # staging raises on oversized/non-float residuals; unsupported
-        # residual primitives (while_loop, traced gathers, non-additive
-        # data sums, ...) raise when the plane function is evaluated —
-        # probe both (value AND gradient path) on a tiny plane. Since
-        # round 4 a non-collapsible per-point likelihood stages too (the
-        # dataset streams through the kernel from SMEM).
-        staged = stage_scalarized(target.logp, d)
-        res = [staged.res_consts[i]
-               for i in range(int(staged.res_consts.shape[0]))]
-        staged.plane_vag(jnp.zeros((d, 8, 8), jnp.float32), res,
-                         staged.stream_data)
-    except Exception as e:
-        return "nuts", ("the model's assess-logp does not stage through "
-                        f"ops.scalarize: {type(e).__name__}: "
-                        + str(e).split(chr(10))[0])
-    return "nuts_fused", "scalarization probe passed"
+    return "nuts_fused", "num_chains >= 2 and a full flat universe"
 
 
 def _maybe_dense(mass, target, warm_flat, winfo, k_warm, num_warmup,
@@ -167,7 +142,7 @@ def _maybe_dense(mass, target, warm_flat, winfo, k_warm, num_warmup,
     pass-through). ``mass="dense"`` Cholesky-whitens against the full
     cross-chain covariance (stages d^2 residual scalars — d <~ 30);
     ``mass="lowrank"`` uses the diag + rank-``mass_rank`` metric
-    (d*k scalars — covers the kernels' full dimension envelope). See
+    (d*k scalars). See
     gen_tpu/inference/mass.py.
 
     ``sel_idx``/``free_mask`` (partial selections, round 5): the metric
@@ -344,8 +319,8 @@ def _sample_mixed(model, args, observations, traces, one_trace, k_run, *,
     # FUSED mixed path (round 5): when the EXTENDED flat universe's
     # assess-logp stages through ops.scalarize with the discrete values
     # as frozen float coordinates, the continuous block runs in the
-    # fused pair-scheduled Pallas NUTS kernel (per-chain discretes
-    # riding in kernel state, refreshed by exact Gibbs between chunks).
+    # many-chain pair-scheduled FSM-NUTS (per-chain discretes riding in
+    # the chain state, refreshed by exact Gibbs between chunks).
     if requested_engine in ("auto", "mixed") and num_chains >= 2:
         probe_reason = _probe_fused_mixed(one_trace, observations)
         if probe_reason is None:
@@ -421,15 +396,12 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
     ``(num_samples, num_chains, *event_shape)`` — exactly what
     :func:`gen_tpu.diagnostics.summarize` and downstream estimators expect.
 
-    ``engine="auto"`` dispatches to the fastest engine whose preconditions
-    hold: ``nuts_fused`` (the fused Pallas FSM-NUTS kernel) when the
-    selection covers every unobserved continuous address, there are >= 2
-    chains, and the model's assess-logp stages through
-    :mod:`gen_tpu.ops.scalarize` (probed automatically); otherwise the
-    per-chain XLA ``nuts`` engine. Note the fused engine returns
-    completed-trajectory draws — possibly fewer than ``num_samples`` —
-    so code that requires exactly ``num_samples`` draws should pin
-    ``engine="nuts"``.
+    ``engine="auto"`` dispatches to ``nuts_fused`` (many-chain FSM-NUTS)
+    when there are >= 2 chains and a full flat universe to sample over;
+    otherwise to the per-chain ``nuts`` engine. Note ``nuts_fused``
+    returns completed-trajectory draws — possibly fewer than
+    ``num_samples`` — so code that requires exactly ``num_samples`` draws
+    should pin ``engine="nuts"``.
 
     ``mass="dense"`` (fused engines only) estimates a dense metric from
     the cross-chain covariance after the diagonal ChEES warmup and runs
@@ -439,14 +411,13 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
     geometry; draws are returned in the original coordinates. The dense
     transform stages d^2 residual scalars, so it is limited to d <~ 30;
     ``mass="lowrank"`` (rank ``mass_rank``, default 8) uses the
-    diag + low-rank metric instead — d*k staged scalars, covering the
-    kernels' full dimension envelope.
+    diag + low-rank metric instead — d*k staged scalars.
 
     ``engine="chees"`` uses cross-chain-adaptive ChEES-HMC
     (:mod:`gen_tpu.inference.chees` — one shared step size and trajectory
     length adapted from cross-chain statistics; every chain runs the same
     leapfrog count, so there is no NUTS tree lockstep and the program is
-    perfectly shaped for vmap/TPU). Requires >= 2 chains.
+    perfectly shaped for vmap). Requires >= 2 chains.
 
     **Partial selections** (chees / hmc_fused / nuts_fused / nuts_fsm):
     the engines run over the full flat universe with the UNSELECTED
@@ -458,11 +429,8 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
     identity on the frozen coordinates (:mod:`gen_tpu.inference.mass`
     ``partial_*``), so each chain's conditioning values are never mixed.
     ``info["engine"]`` records which engine actually ran;
-    ``engine="auto"`` additionally sets ``info["engine_reason"]`` and
-    emits a one-line warning when it falls back to the XLA path (the
-    fused-vs-XLA gap is ~3 orders of magnitude at large chain counts —
-    a fallback should never be silent). ``adapt_mass`` (default True)
-    controls the
+    ``engine="auto"`` additionally sets ``info["engine_reason"]``.
+    ``adapt_mass`` (default True) controls the
     cross-chain diagonal-mass adaptation in the ``chees`` and
     ``hmc_fused`` engines; set False for the pre-round-2 identity-mass
     behavior (it is ignored by the ``nuts``/``nuts_fsm`` engines, which
@@ -470,22 +438,21 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
 
     ``engine="hmc_fused"`` is the maximum-throughput path for large chain
     counts: ChEES warmup (cross-chain step-size + trajectory adaptation)
-    followed by sampling in the fused Pallas kernel
-    (:mod:`gen_tpu.ops.hmc_fused` — the whole sampler is one kernel, the
-    chain block stays in VMEM; 1.5B effective samples/sec on one v5e chip
-    for the benchmark regression model). Falls back to the XLA sampler
-    off-TPU. Same full-selection requirement as the other flat engines;
-    the model's logp must scalarize (sufficient-statistic likelihoods —
-    :mod:`gen_tpu.ops.scalarize` raises with advice otherwise).
+    followed by sampling in the fused HMC kernel
+    (:mod:`gen_tpu.ops.hmc_fused` — the whole sampler is one kernel on
+    the GPU, each chain's state in registers for every leapfrog). Models
+    whose logp does not stage into the kernel, dimensions past the
+    kernel's measured crossover, and the CPU run the XLA sampler. Same
+    full-selection requirement as the other flat engines.
 
-    ``engine="nuts_fused"`` runs FSM-NUTS inside the fused Pallas kernel
-    (:mod:`gen_tpu.ops.nuts_fused` — the whole tick loop VMEM-resident;
-    ChEES warmup supplies step size + mass, NUTS chooses trajectory
-    lengths). Budgeted in TICKS like ``nuts_fsm`` (``num_ticks``, default
+    ``engine="nuts_fused"`` runs pair-scheduled FSM-NUTS over all chains
+    in one compiled program (:mod:`gen_tpu.ops.nuts_fused`; ChEES warmup
+    supplies step size + mass, NUTS chooses trajectory lengths).
+    Budgeted in TICKS like ``nuts_fsm`` (``num_ticks``, default
     ``8 * num_samples``); draws are the completed-trajectory endpoints
     extracted exactly once per trajectory, so expect variable draw counts
-    capped at ``num_samples``. Same full-selection + scalarizable-logp
-    requirements as ``hmc_fused``; falls back to the XLA FSM off-TPU.
+    capped at ``num_samples``. Same full-selection requirement as
+    ``hmc_fused``.
 
     ``engine="nuts_fsm"`` uses the tick-synchronous state-machine engine
     (:mod:`gen_tpu.inference.nuts_fsm` — no vmap lockstep; wins at large
@@ -498,8 +465,13 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
     Pass ``mesh`` (a ``jax.sharding.Mesh`` with a ``mesh_axis`` axis, e.g.
     from :func:`gen_tpu.parallel.chain_mesh`) to shard the chains over
     devices: the per-chain keys are laid out along the axis and XLA
-    partitions the whole compiled program (chains are independent, so no
-    collectives are inserted; results are identical to the unsharded run).
+    partitions the whole compiled program. The samplers are chain-local;
+    the warmup's cross-chain statistics (ChEES step size and mass) are
+    reduced over the mesh. Results match the unsharded run in
+    distribution, not draw for draw: that reduction sums in another order,
+    and the warmup's feedback carries the rounding into the adapted step
+    size and mass. Given the same step size, mass, start and key, the
+    NUTS engine gives the same draws on the mesh as on one device.
     """
     k_init, k_run = jax.random.split(key)
     init_keys = jax.random.split(k_init, num_chains)
@@ -544,17 +516,6 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
     if engine == "auto":
         engine, auto_reason = _auto_engine(one_trace, observations,
                                            selection, num_chains)
-        if engine == "nuts":
-            # the fused path is ~3 orders of magnitude faster at scale:
-            # a silent fallback is a silent 1000x cliff (VERDICT r3
-            # weak #2 / item 7) — say so once, and record why in info
-            import warnings
-            warnings.warn(
-                "engine='auto' fell back to the per-chain XLA 'nuts' "
-                f"engine: {auto_reason}. The fused Pallas engine is "
-                "orders of magnitude faster at large chain counts — see "
-                "info['engine_reason'] and docs/api.md for what the "
-                "fused path requires.", stacklevel=2)
     if mass != "diag" and engine not in ("hmc_fused", "nuts_fused"):
         raise ValueError(
             f"mass={mass!r} is only supported by the fused engines "
@@ -593,7 +554,7 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
         flat = jnp.swapaxes(samples_sm, 0, 1)    # -> (chains, draws, dim)
         final_traces = None
     elif engine == "hmc_fused":
-        from ..ops.hmc_fused import hmc_chains_fused_chunked
+        from ..ops.hmc_fused import hmc_chains_fused
         from .chees import chees_hmc_warmup_and_sample
         from .target import FlatTarget
         full_sel, free_mask, sel_idx, partial = _free_mask_layout(
@@ -604,8 +565,7 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
         # phase 1 (XLA): ChEES warmup adapts one shared step size +
         # trajectory length + diagonal mass (cross-chain variance) from
         # cross-chain statistics; fetch eps/L to host so phase 2 compiles
-        # with them baked in (the mass enters the kernel as SMEM scalars
-        # and may stay on device). Partial selections run over the FULL
+        # with them baked in (the mass may stay on device). Partial selections run over the FULL
         # flat universe with unselected coordinates frozen (inv_mass 0) —
         # each chain conditions on its own values.
         k_warm, k_fused = jax.random.split(k_run)
@@ -616,9 +576,9 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
                 free_mask=free_mask if partial else None))(traces, k_warm)
         eps_adapted = float(winfo["step_size"])
         n_leap = max(1, int(winfo["num_leapfrogs"]))
-        # phase 2: the fused Pallas kernel samples from the warm state
-        # (ops/hmc_fused.py; XLA fallback off-TPU), collecting every
-        # coordinate each step
+        # phase 2: the fused sampler runs from the warm state
+        # (ops/hmc_fused.py: the kernel on the GPU, XLA elsewhere),
+        # collecting every coordinate each step
         target = FlatTarget(one_trace, full_sel)
         logp_use, inv_mass_use, to_x, warm_flat = _maybe_dense(
             mass, target, warm_flat, winfo, k_warm, num_warmup,
@@ -634,11 +594,7 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
                 warm_flat, jax.random.fold_in(k_warm, 99))
             eps_adapted = float(winfo2["step_size"])
             n_leap = max(1, int(winfo2["num_leapfrogs"]))
-        # chunked driver (ADVICE r3): the all-coordinate per-step history
-        # is double-buffered in scoped VMEM, so num_samples steps in ONE
-        # kernel call violates the envelope for any d >= 2 on TPU —
-        # chunks are sized from the same budget as check_vmem_envelope
-        _, collected, accs = hmc_chains_fused_chunked(
+        _, collected, accs = hmc_chains_fused(
             k_fused, logp_use, warm_flat, n_steps=num_samples,
             L=n_leap, eps=eps_adapted, collect_idx=None,
             inv_mass_diag=inv_mass_use)
@@ -652,7 +608,7 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
                     inv_mass=winfo["inv_mass"],
                     mean_accept=jnp.mean(accs) / num_samples)
     elif engine == "nuts_fused":
-        from ..ops.nuts_fused import (nuts_chains_fused_chunked,
+        from ..ops.nuts_fused import (nuts_chains_fused,
                                       extract_completed_draws)
         from .chees import chees_hmc_warmup_and_sample
         from .target import FlatTarget
@@ -673,12 +629,8 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
                 free_mask=free_mask if partial else None))(traces, k_warm)
         eps_adapted = float(winfo["step_size"])
         target = FlatTarget(one_trace, full_sel)
-        d = int(warm_flat.shape[1])
         ticks = num_ticks or 8 * num_samples
-        # phase 2: the fused FSM-NUTS kernel (ops/nuts_fused.py; XLA FSM
-        # fallback off-TPU), chunked so the all-coordinate history block
-        # stays within Mosaic's scoped-VMEM limit
-        del d
+        # phase 2: many-chain FSM-NUTS (ops/nuts_fused.py), one call
         logp_use, inv_mass_use, to_x, warm_flat = _maybe_dense(
             mass, target, warm_flat, winfo, k_warm, num_warmup,
             target_accept, mass_rank,
@@ -690,12 +642,10 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
                 free_mask=free_mask if partial else None))(
                 warm_flat, jax.random.fold_in(k_warm, 99))
             eps_adapted = float(winfo2["step_size"])
-        # paired=True: the pair-scheduled kernel (ops/nuts_fused.py
-        # _kernel_pair) — same NUTS semantics, ~1.6-2x throughput
-        _, hist, hcnt, cnt, fstats = nuts_chains_fused_chunked(
+        _, hist, hcnt, cnt, fstats = nuts_chains_fused(
             k_run2, logp_use, warm_flat, num_ticks=ticks,
             eps=eps_adapted, max_depth=max_depth,
-            inv_mass_diag=inv_mass_use, collect_idx=None, paired=True)
+            inv_mass_diag=inv_mass_use, collect_idx=None)
         if to_x is not None:
             hist = to_x(hist)                 # (ticks, n, d), d last
         m = int(jnp.min(cnt))

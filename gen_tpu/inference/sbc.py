@@ -9,7 +9,7 @@ procedure targets the correct posterior, every rank is uniform on
 {0..L}. Any bias anywhere (weights, kernels, adaptation, diagnostics-
 driven early stopping) shows up as non-uniform ranks.
 
-TPU-native: the whole study is ``vmap`` over trials of
+accelerator-native: the whole study is ``vmap`` over trials of
 (simulate -> filter observations -> run inference -> rank), one compiled
 program — hundreds of full posterior runs per call is exactly the
 many-chains regime the rest of the library optimizes for.

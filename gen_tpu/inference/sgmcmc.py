@@ -5,7 +5,7 @@ No reference analogue — Gen.jl's gradient kernels (hmc.jl, mala.jl) always
 score the FULL dataset. At production scale the likelihood term is a sum
 over millions of observations; subsampled gradients (Welling & Teh 2011
 SGLD; Chen et al. 2014 SGHMC) are the standard answer, and they fit the
-TPU stack naturally: the minibatch gradient is one fused assess+grad over
+accelerator stack naturally: the minibatch gradient is one fused assess+grad over
 a static-shape batch, and the whole chain is a ``lax.scan`` over a
 prestacked epoch of batches.
 

@@ -9,7 +9,7 @@ ancestry row, and full trajectories are reconstructed once at the end by a
 backward gather pass. log-ML estimates are identical in distribution; the
 per-step cost no longer grows with history length.
 
-This is the TPU-native answer to SURVEY.md §5.7's "long-sequence story":
+This is the accelerator-native answer to SURVEY.md §5.7's "long-sequence story":
 one compiled program for the entire filter, with resampling traffic
 independent of T."""
 

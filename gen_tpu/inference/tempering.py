@@ -4,7 +4,7 @@ No reference analogue — Gen.jl ships no annealing machinery (its log-ML
 estimators are importance sampling, importance.jl, and the particle
 filter, particle_filter.jl). These are the standard tools for multimodal
 posteriors and tight marginal-likelihood estimates, and they are exactly
-the shape TPUs like: N particles/replicas vmapped over a flat latent
+the shape accelerators like: N particles/replicas vmapped over a flat latent
 vector, a ``lax.scan`` over the temperature ladder, weight collectives for
 resampling.
 

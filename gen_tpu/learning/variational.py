@@ -2,7 +2,7 @@
 
 Reference: /root/reference/src/inference/variational.jl (score-function /
 REINFORCE estimator and multi-sample VIMCO with geometric/arithmetic
-baselines). TPU-native design: the samples_per_iter axis is a ``vmap`` axis
+baselines). Design: the samples_per_iter axis is a ``vmap`` axis
 and the entire gradient estimate for one iteration is ONE jitted program —
 sample S variational traces, assess the model on all of them, form the
 estimator, and differentiate the re-assessed variational log-density bundle.
@@ -279,7 +279,7 @@ def reparam_vi(key, model: GenerativeFunction, model_args: Tuple,
                observations: ChoiceMap, var_model: GenerativeFunction,
                var_model_args: Tuple, update: ParamUpdate, iters=1000,
                samples_per_iter=32, verbose=False, callback=None):
-    """Reparameterized-gradient VI (pathwise estimator; TPU-native addition
+    """Reparameterized-gradient VI (pathwise estimator; accelerator-native addition
     — lower variance than the score-function estimator whenever all
     variational choices are continuous). Differentiates through
     ``var_model.simulate`` itself."""

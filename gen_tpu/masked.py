@@ -1,7 +1,7 @@
 """Masked values: dynamically-present constraints.
 
 Not in the reference (whose constraint structure is always host-concrete);
-required TPU-side whenever constraint *presence* varies per element of a
+required accelerator-side whenever constraint *presence* varies per element of a
 vmapped/scanned axis — e.g. particles with missing observations at some
 timesteps, or per-element partial constraints in Map. A
 :class:`MaskedValue` wraps ``(value, flag)``: structurally the address is

@@ -1,10 +1,10 @@
-"""Model families with TPU-native fast paths.
+"""Model families with accelerator-native fast paths.
 
 The reference ships model families as examples (examples/regression,
 examples/pmmh's state-space model, ...). This package hosts the ones whose
-TPU-native formulation is a reusable library component in its own right:
+accelerator-native formulation is a reusable library component in its own right:
 linear-Gaussian state-space models with exact Kalman inference and an
-MXU-path batched-weight formulation.
+matmul-path batched-weight formulation.
 """
 
 from .lgssm import (LGSSMParams, KalmanResult, kalman_filter, kalman_smoother,

@@ -7,10 +7,10 @@ pair in Julia loops). Here the GP is a model family on the same footing
 as the LGSSM/HMM modules (gen_tpu/models/lgssm.py:1-40 for the design
 pattern):
 
-  * pairwise distances are computed the MXU way —
+  * pairwise distances are computed the matrix units way —
     ||x||^2 + ||x'||^2 - 2 x x'^T is one (n, d) x (d, m) matmul, not an
     O(n m d) broadcast (the broadcast materializes an (n, m, d)
-    intermediate; the matmul formulation keeps the FLOPs on the systolic
+    intermediate; the matmul formulation keeps the FLOPs on the matrix
     array and the memory at O(n m)),
   * the exact log marginal likelihood / posterior predictive are a single
     Cholesky + triangular solves, differentiable with ``jax.grad`` through
@@ -35,9 +35,13 @@ import jax.numpy as jnp
 
 from ..dists.distribution import Distribution, _f
 
+# f32 dots feeding a log density (kernel matrices, the log-ML quadratic
+# form) run at full f32 precision, not TF32
+_HI = jax.lax.Precision.HIGHEST
+
 
 def pairwise_sq_dists(xs1, xs2):
-    """(n, d), (m, d) -> (n, m) squared distances via the MXU matmul
+    """(n, d), (m, d) -> (n, m) squared distances via the matrix units matmul
     formulation. 1-D inputs are treated as (n, 1). Clipped at 0 (the
     matmul form can go slightly negative in float arithmetic)."""
     xs1, xs2 = _f(xs1), _f(xs2)
@@ -47,7 +51,7 @@ def pairwise_sq_dists(xs1, xs2):
         xs2 = xs2[:, None]
     n1 = jnp.sum(xs1 * xs1, axis=-1)
     n2 = jnp.sum(xs2 * xs2, axis=-1)
-    cross = xs1 @ xs2.T
+    cross = jnp.matmul(xs1, xs2.T, precision=_HI)
     return jnp.maximum(n1[:, None] + n2[None, :] - 2.0 * cross, 0.0)
 
 
@@ -80,7 +84,7 @@ def linear_kernel(xs1, xs2, variance):
         xs1 = xs1[:, None]
     if xs2.ndim == 1:
         xs2 = xs2[:, None]
-    return variance * (xs1 @ xs2.T)
+    return variance * jnp.matmul(xs1, xs2.T, precision=_HI)
 
 
 def periodic(xs1, xs2, variance, lengthscale, period):
@@ -106,7 +110,7 @@ def gp_log_ml(kernel_fn: Callable, xs, ys, theta, noise):
     n = ys.shape[0]
     chol = _chol_k(kernel_fn, xs, theta, noise)
     alpha = jax.scipy.linalg.cho_solve((chol, True), ys)
-    return (-0.5 * ys @ alpha
+    return (-0.5 * jnp.dot(ys, alpha, precision=_HI)
             - jnp.sum(jnp.log(jnp.diagonal(chol)))
             - 0.5 * n * jnp.log(2.0 * jnp.pi))
 
@@ -118,9 +122,10 @@ def gp_posterior(kernel_fn: Callable, xs, ys, theta, noise, xstar):
     chol = _chol_k(kernel_fn, xs, theta, noise)
     k_star = kernel_fn(xs, xstar, *theta)           # (n, m)
     alpha = jax.scipy.linalg.cho_solve((chol, True), ys)
-    mean = k_star.T @ alpha
+    mean = jnp.matmul(k_star.T, alpha, precision=_HI)
     v = jax.scipy.linalg.solve_triangular(chol, k_star, lower=True)
-    cov = kernel_fn(xstar, xstar, *theta) - v.T @ v
+    cov = kernel_fn(xstar, xstar, *theta) - jnp.matmul(v.T, v,
+                                                       precision=_HI)
     return mean, cov
 
 
@@ -133,8 +138,9 @@ def gp_predict(kernel_fn: Callable, xs, ys, theta, noise, xstar):
 def gp_sample(key, kernel_fn: Callable, xs, theta, noise):
     """Draw ys ~ GP prior + observation noise at inputs xs."""
     chol = _chol_k(kernel_fn, xs, theta, noise)
-    return chol @ jax.random.normal(key, (jnp.shape(xs)[0],),
-                                    dtype=chol.dtype)
+    return jnp.matmul(chol, jax.random.normal(key, (jnp.shape(xs)[0],),
+                                              dtype=chol.dtype),
+                      precision=_HI)
 
 
 class GPMarginal(Distribution):
@@ -184,7 +190,7 @@ def _make_gp_latent():
         n = xs.shape[0]
         z = broadcasted_normal(jnp.zeros(n), 1.0) @ "z"
         k = rbf(xs, xs, variance, lengthscale) + jitter * jnp.eye(n)
-        return jnp.linalg.cholesky(k) @ z
+        return jnp.matmul(jnp.linalg.cholesky(k), z, precision=_HI)
 
     return gp_latent_rbf
 

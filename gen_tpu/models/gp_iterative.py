@@ -3,11 +3,10 @@ Lanczos quadrature (SLQ), for n where the dense Cholesky stops paying.
 
 Why this exists: ``gp_log_ml`` (gen_tpu/models/gp.py) is one Cholesky —
 exact, but the Cholesky's sequential panel recursion runs at a small
-fraction of peak on TPU (measured ~177 GFLOP/s on v5e vs >40 TFLOP/s for
-f32 matmul). Every FLOP in this module is instead an (n, n) x (n, t)
-matmul — the MXU-native shape — so for n in the thousands the same log
-marginal likelihood and its hyperparameter gradients come out several
-times faster, at the price of a controlled stochastic error in the
+fraction of an accelerator's matmul peak. Every FLOP in this module is
+instead an (n, n) x (n, t) matmul, so for n in the thousands the same log
+marginal likelihood and its hyperparameter gradients can come out faster
+(not measured on the GPU yet), at the price of a controlled stochastic error in the
 logdet term (the collapsed-likelihood quadratic form is solved by CG to
 convergence and is NOT stochastic).
 
@@ -41,7 +40,7 @@ key in for exactly this reason.
 
 Reference parity: the reference has no iterative GP path (its only GP
 code assembles dense covariances in Julia loops,
-examples/gp_structure/shared.jl); this module is new TPU-native
+examples/gp_structure/shared.jl); this module is new accelerator-native
 capability layered under the same ``gp_marginal`` API.
 """
 
@@ -96,7 +95,7 @@ def pmbcg(kmat, rhs, max_iters: int, tol: float = 1e-10, pinv=None):
     def step(carry, _):
         x, r, z, p, rz = carry
         live = rz > thresh
-        v = kmat @ p                                     # the MXU op
+        v = kmat @ p                                     # the matrix units op
         pap = jnp.sum(p * v, axis=0)
         alpha = jnp.where(live, rz / jnp.where(pap > 0, pap, 1.0), 0.0)
         x = x + alpha * p

@@ -5,7 +5,7 @@ against a hand-written forward algorithm, test/inference/particle_filter.jl
 — that oracle is exactly what this module makes a first-class, batched,
 differentiable library component). Everything here is scan-of-matmul work:
 the forward recursion over N chains is an (N, K) x (K, K) matmul per step
-(MXU once K is large), and the whole filter/smoother/FFBS runs as one
+(matmul once K is large), and the whole filter/smoother/FFBS runs as one
 compiled program.
 
 API mirrors :mod:`gen_tpu.models.lgssm`:
@@ -83,15 +83,15 @@ def hmm_forward(params: HMMParams, ys):
 
 def hmm_forward_batched(params: HMMParams, ys_batch, dtype=None):
     """Scaled (prob-space) forward algorithm batched over sequences: the
-    MXU formulation. ``ys_batch``: (N, T) int. Per step the whole batch
+    matmul formulation. ``ys_batch``: (N, T) int. Per step the whole batch
     advances with ONE (N, K) x (K, K) matmul — for K >= 64ish this runs on
-    the systolic array, where the log-space einsum/logsumexp form is
-    VPU-bound. Per-step renormalization (the classical scaled forward
+    the matrix units, where the log-space einsum/logsumexp form is
+    elementwise-bound. Per-step renormalization (the classical scaled forward
     recursion) keeps everything in range; log-ML accumulates the log
     normalizers.
 
-    ``dtype=jnp.bfloat16`` runs the transition matmul in the MXU's native
-    bf16 mode (f32 accumulation) — appropriate for SMC-style weights and
+    ``dtype=jnp.bfloat16`` runs the transition matmul in bf16
+    (f32 accumulation) — appropriate for SMC-style weights and
     EM responsibilities, not for exact MH accept ratios.
 
     Returns ``(log_mls (N,), filtered (T, N, K))`` — filtered posteriors
@@ -110,7 +110,10 @@ def hmm_forward_batched(params: HMMParams, ys_batch, dtype=None):
                 dimension_numbers=(((1,), (0,)), ((), ())),
                 preferred_element_type=jnp.float32)
         else:
-            pred = alpha @ trans
+            # full f32 precision: the forward recursion accumulates the
+            # log-ML, where TF32 rounding would compound over T steps
+            pred = jnp.matmul(alpha, trans,
+                              precision=jax.lax.Precision.HIGHEST)
         pred = jnp.where(first, init[None, :], pred)
         un = pred * emit[:, y_t].T          # (N, K): emit gathered per seq
         norm = jnp.sum(un, axis=1)

@@ -3,9 +3,9 @@
 The reference has no Kalman code — its state-space story is the Unfold
 combinator + particle filter (SURVEY.md §5.7; examples/pmmh uses a scalar
 AR(1)+noise model and a hand-written scalar Kalman recursion only as a
-*test oracle*, examples/pmmh/run.jl). For a TPU framework the multivariate
-linear-Gaussian family deserves first-class support because every piece of
-it is MXU work:
+*test oracle*, examples/pmmh/run.jl). The multivariate linear-Gaussian
+family deserves first-class support because every piece of it is dense
+matrix work:
 
   * the Kalman filter/smoother is a ``lax.scan`` of (D x D) matmuls and
     Cholesky solves — exact marginal likelihood + posteriors in one
@@ -17,7 +17,7 @@ it is MXU work:
     with no particles and no pseudo-marginal noise;
   * the per-particle observation weights of an SMC run over the
     uncollapsed model are a batched shared-covariance MVN logpdf — the
-    MXU-path kernel in :mod:`gen_tpu.ops.mvn`.
+    batched kernel in :mod:`gen_tpu.ops.mvn`.
 
 Generative model (time-major, T steps, state dim D, obs dim P):
 
@@ -38,6 +38,13 @@ from ..dynamic import gen
 from ..ops.mvn import MvnChol, mvn_logpdf_rows, mvn_precompute
 
 _LOG_2PI = 1.8378770664093453
+
+
+def _mm(a, b):
+    """Matrix product at full f32 precision: the Kalman recursions and the
+    SMC weights feed log densities, where TF32 (a GPU's default for f32
+    matmuls) loses too many digits."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 class LGSSMParams(NamedTuple):
@@ -83,20 +90,20 @@ def kalman_filter(params: LGSSMParams, ys) -> KalmanResult:
     def step(carry, y):
         m, P, first = carry
         # predict (the t=0 step uses the prior directly: branchless select)
-        m_pred = jnp.where(first, mu0, A @ m)
-        P_pred = jnp.where(first, P0, _sym(A @ P @ A.T + Q))
+        m_pred = jnp.where(first, mu0, _mm(A, m))
+        P_pred = jnp.where(first, P0, _sym(_mm(_mm(A, P), A.T) + Q))
         # innovation
-        v = y - C @ m_pred
-        S = _sym(C @ P_pred @ C.T + R)
+        v = y - _mm(C, m_pred)
+        S = _sym(_mm(_mm(C, P_pred), C.T) + R)
         chol_s = jnp.linalg.cholesky(S)
         s_inv_v = jax.scipy.linalg.cho_solve((chol_s, True), v)
-        log_ml_t = -0.5 * (v @ s_inv_v + p * _LOG_2PI) \
+        log_ml_t = -0.5 * (_mm(v, s_inv_v) + p * _LOG_2PI) \
             - jnp.sum(jnp.log(jnp.diagonal(chol_s)))
         # gain: K = P_pred C^T S^{-1}
-        K = jax.scipy.linalg.cho_solve((chol_s, True), C @ P_pred).T
-        m_filt = m_pred + K @ v
-        ImKC = eye_d - K @ C
-        P_filt = _sym(ImKC @ P_pred @ ImKC.T + K @ R @ K.T)
+        K = jax.scipy.linalg.cho_solve((chol_s, True), _mm(C, P_pred)).T
+        m_filt = m_pred + _mm(K, v)
+        ImKC = eye_d - _mm(K, C)
+        P_filt = _sym(_mm(_mm(ImKC, P_pred), ImKC.T) + _mm(_mm(K, R), K.T))
         return ((m_filt, P_filt, jnp.zeros_like(first)),
                 (log_ml_t, m_filt, P_filt, m_pred, P_pred))
 
@@ -120,9 +127,9 @@ def kalman_smoother(params: LGSSMParams, ys):
         m_filt, P_filt, m_pred, P_pred = inp
         # J = P_filt A^T P_pred^{-1}
         chol = jnp.linalg.cholesky(P_pred)
-        J = jax.scipy.linalg.cho_solve((chol, True), A @ P_filt).T
-        m_s = m_filt + J @ (m_next_s - m_pred)
-        P_s = _sym(P_filt + J @ (P_next_s - P_pred) @ J.T)
+        J = jax.scipy.linalg.cho_solve((chol, True), _mm(A, P_filt)).T
+        m_s = m_filt + _mm(J, m_next_s - m_pred)
+        P_s = _sym(P_filt + _mm(_mm(J, P_next_s - P_pred), J.T))
         return (m_s, P_s), (m_s, P_s)
 
     init = (m_f[-1], P_f[-1])
@@ -139,10 +146,10 @@ def lgssm_kernel(t, prev_x, A, Q, C, R, mu0, P0):
     """Unfold/SMC kernel for the uncollapsed LGSSM: addresses "x", "y" per
     step. Branchless t==0 handling (traced t under lax.scan)."""
     first = (t == 0)
-    mean = jnp.where(first, mu0, A @ prev_x)
+    mean = jnp.where(first, mu0, _mm(A, prev_x))
     cov = jnp.where(first, P0, Q)
     x = mvnormal(mean, cov) @ "x"
-    mvnormal(C @ x, R) @ "y"
+    mvnormal(_mm(C, x), R) @ "y"
     return x
 
 
@@ -179,10 +186,10 @@ class LinearGaussianSSM(Distribution):
             kx, ky = jax.random.split(k)
             ex = jax.random.normal(kx, jnp.shape(mu0), dtype=mu0.dtype)
             chol = jnp.where(first, chol_p0, chol_q)
-            mean = jnp.where(first, mu0, A @ x)
-            x_new = mean + chol @ ex
+            mean = jnp.where(first, mu0, _mm(A, x))
+            x_new = mean + _mm(chol, ex)
             ey = jax.random.normal(ky, (C.shape[-2],), dtype=mu0.dtype)
-            y = C @ x_new + chol_r @ ey
+            y = _mm(C, x_new) + _mm(chol_r, ey)
             return (x_new, jnp.zeros_like(first)), y
 
         keys = jax.random.split(key, self.num_steps)
@@ -202,11 +209,12 @@ def lgssm_batch_weights(xs, ys_t, C, prec_r: MvnChol, dtype=None):
     """Per-particle observation log-weights for one SMC step: particles
     ``xs`` (N, D), one observation ``ys_t`` (P,), shared emission noise.
 
-    The MXU path: predicted means = xs @ C.T is one (N,D)x(D,P) matmul and
-    the shared-covariance MVN logpdf is one (N,P)x(P,P) matmul
-    (:func:`gen_tpu.ops.mvn.mvn_logpdf_rows`). ``dtype=jnp.bfloat16``
-    runs both matmuls in the MXU's bf16 mode with f32 accumulation —
-    appropriate for SMC weights where Monte-Carlo error dominates.
+    Predicted means = xs @ C.T is one (N,D)x(D,P) matmul and the
+    shared-covariance MVN logpdf is one (N,P)x(P,P) matmul
+    (:func:`gen_tpu.ops.mvn.mvn_logpdf_rows`), both at full f32 precision
+    by default. ``dtype=jnp.bfloat16`` runs both matmuls in bf16 with f32
+    accumulation — appropriate for SMC weights where Monte-Carlo error
+    dominates.
     """
     xs = jnp.asarray(xs)
     C = jnp.asarray(C)
@@ -216,6 +224,6 @@ def lgssm_batch_weights(xs, ys_t, C, prec_r: MvnChol, dtype=None):
             dimension_numbers=(((1,), (1,)), ((), ())),
             preferred_element_type=jnp.float32)
     else:
-        mean = xs @ C.T
+        mean = _mm(xs, C.T)
     return mvn_logpdf_rows(jnp.asarray(ys_t)[None, :] - mean,
                            jnp.zeros_like(mean[0]), prec_r, dtype=dtype)

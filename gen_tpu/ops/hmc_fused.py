@@ -1,41 +1,36 @@
-"""Fused many-chain HMC as a single Pallas TPU kernel.
+"""Fused many-chain HMC as one Pallas kernel on the GPU (Triton route).
 
-The XLA :func:`~gen_tpu.inference.hmc.hmc_chains` path is HBM-bound: every
-leapfrog's logp reduction breaks XLA fusion, so the (chains, d) state
-round-trips HBM ~3x per leapfrog (~255 GB/s effective on v5e, measured).
-This kernel keeps a block of chains resident in VMEM for ALL
-``n_steps x L`` leapfrogs: HBM traffic collapses to one state read, the
-per-step collected row, and the final state write. Momenta and accept
-draws come from the on-core PRNG (``pltpu.prng_random_bits``) and never
-touch HBM.
+The XLA :func:`~gen_tpu.inference.hmc.hmc_chains` path runs several
+fusions per leapfrog, and each one reads and writes the ``(chains, d)``
+state in device memory. This kernel gives every chain one lane of a block
+and keeps its whole state (position, momentum, gradient, logp) in
+registers for ALL ``n_steps x L`` leapfrogs: device-memory traffic is one
+state read, the per-step collected row, and one final write. Momenta,
+step-size jitter and accept draws come from a counter-based Threefry-2x32
+generator inside the kernel, keyed on (seed, global chain index, step,
+stream), so nothing random is read from memory either.
 
-Layout (measured, see benchmarks/RESULTS.md): coordinates stored as
-FULL-TILE planes — the state is ``(d, 8, n/8)`` so every per-chain
-elementwise op runs at the VPU's native (8, 128) width. The first
-prototype kept coordinates as ``(1, T)`` rows and ran at 1/8 VPU
-utilization (1.4x over XLA); the plane layout runs 6.6x over XLA
-(226 us per 524k-chain x L=10 step).
+Layout: the state is ``(d, n_pad)`` with ``n_pad`` a multiple of the
+block ``B``; program ``i`` owns chains ``[i*B, (i+1)*B)`` and holds each
+coordinate as a ``(B,)`` vector. No shared memory is used.
 
 The target ``logp: (d,) -> scalar`` is any traceable JAX function — in
 particular ``FlatTarget(trace, selection).logp``, i.e. the full
 generative-function ``assess`` — staged into the kernel by the
-scalarization pass in :mod:`gen_tpu.ops.scalarize`: the data-only subgraph
-is partial-evaluated OUTSIDE the kernel (one XLA computation per call —
-the generalization of ``normal_linear``'s Gram hoisting to arbitrary
-models), and the x-dependent residual is unrolled into per-coordinate
-full-tile elementwise ops (for the bench regression model the entire
-50-point dataset reduces to 13 staged scalars). CAVEATS: the residual must
-be small (sufficient-statistic likelihoods; a likelihood whose x-dependent
-part touches the raw data errors out with advice) and must not contain
-scan/while/cond or traced-index gathers; and the PRNG stream is the TPU
-on-core generator, so results match ``hmc_chains`` in DISTRIBUTION, not
-bitwise. Off-TPU (``use_pallas=False``) an XLA fallback with identical
-semantics runs instead.
+scalarization pass in :mod:`gen_tpu.ops.scalarize`: the data-only
+subgraph is partial-evaluated OUTSIDE the kernel (one XLA computation per
+call; for the benchmark regression model the 50-point dataset reduces to
+13 staged scalars, which arrive as one small f32 input), and the
+x-dependent residual is unrolled into per-coordinate elementwise ops on
+the ``(B,)`` lane vectors. A per-point likelihood that does not collapse
+streams its data table from device memory (L2-resident) inside the
+kernel. A logp that does not stage (``while_loop``, traced gathers) runs
+on the XLA path.
 
 Reference lineage: inference/hmc.jl:25-73 is the semantic ancestor
-(leapfrog + MH accept over to_array-flattened selected choices); everything
-about this formulation — many chains, jitter, on-core RNG, VMEM residency —
-is TPU-native design with no reference analogue.
+(leapfrog + MH accept over to_array-flattened selected choices); the
+many-chain, jittered, register-resident formulation has no reference
+analogue.
 """
 
 from __future__ import annotations
@@ -47,515 +42,278 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-SUB = 8                 # sublane rows per coordinate plane
-_DEF_TILE = 1024        # chains per grid step (measured best at 524k chains)
+# chains per program and warps per program (measured on one H100; see
+# CHANGES.md)
+_BLOCK = 256
+_NUM_WARPS = 4
 
-# Mosaic's scoped-VMEM cap. The COMPILER default is 16 MiB — a
-# conservative allowance for kernels embedded in larger XLA programs —
-# but v5e physically has 128 MiB of VMEM and these kernels are the whole
-# program. Raising the cap via CompilerParams(vmem_limit_bytes=...) is
-# what widened the round-4 envelope from d=120 to d>=512 (nuts, md8):
-# the "16 MB wall" of rounds 2-4a was a default, not the hardware.
-# 100 MiB leaves margin for the framework's own VMEM reservations.
-VMEM_LIMIT = 100 * 1024 * 1024
+_TINY = 1.1754944e-38
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds) on uint32 words — the same block cipher
+    as ``jax.random``'s default generator, written with add / rotate / xor
+    only so that it lowers inside a Triton kernel. Broadcasts like
+    ``jnp`` arithmetic; returns the two output words."""
+    u32 = jnp.uint32
+    k0, k1 = jnp.asarray(k0, u32), jnp.asarray(k1, u32)
+    ks = (k0, k1, k0 ^ k1 ^ u32(0x1BD11BDA))
+    x = [jnp.asarray(x0, u32) + ks[0], jnp.asarray(x1, u32) + ks[1]]
+    for i in range(5):                     # 5 key injections x 4 rounds
+        for r in _ROTATIONS[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = (x[1] << u32(r)) | (x[1] >> u32(32 - r))
+            x[1] = x[1] ^ x[0]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + u32(i + 1)
+    return x[0], x[1]
 
 
 def _uniform(bits):
-    """uint32 bits -> f32 uniform in [0,1) (jax.random's mantissa trick)."""
-    from jax.experimental.pallas import tpu as pltpu
-    mant = jax.lax.shift_right_logical(pltpu.bitcast(bits, jnp.uint32),
-                                       jnp.uint32(9))
-    f = pltpu.bitcast(mant | jnp.uint32(0x3F800000), jnp.float32)
-    return f - 1.0
+    """uint32 bits -> f32 uniform in [0, 1) (``jax.random``'s mantissa
+    construction)."""
+    mant = (bits >> jnp.uint32(9)) | jnp.uint32(0x3F800000)
+    return jax.lax.bitcast_convert_type(mant, jnp.float32) - 1.0
 
 
-def _normals(n_planes, plane_shape):
-    """(n_planes, *plane_shape) standard normals: Box-Muller, cos+sin pairs."""
-    from jax.experimental.pallas import tpu as pltpu
-    pairs = (n_planes + 1) // 2
-    shape = (pairs,) + plane_shape
-    tiny = jnp.float32(1.1754944e-38)
-    u1 = jnp.maximum(_uniform(pltpu.prng_random_bits(shape)), tiny)
-    u2 = _uniform(pltpu.prng_random_bits(shape))
-    r = jnp.sqrt(-2.0 * jnp.log(u1))
-    theta = jnp.float32(2.0 * np.pi) * u2
-    z = jnp.concatenate([r * jnp.cos(theta), r * jnp.sin(theta)], axis=0)
-    return z[:n_planes]
+def step_draws(k0, k1, lane, step, d: int):
+    """The kernel's randomness for one HMC step: ``(eps_u, z, u)`` with
+    ``eps_u`` the step-size jitter uniform shared by every chain, ``z`` a
+    list of ``d`` standard-normal ``lane``-shaped vectors (Box-Muller on
+    counter pairs) and ``u`` the accept uniform in (0, 1].
+
+    Counters: word 0 is the global chain index ``lane``; word 1 is
+    ``step * S + stream`` with ``S = ceil(d/2) + 1`` streams per step (the
+    normal pairs, then the accept draw). The jitter draw uses chain index
+    ``0xFFFFFFFF``, so it is the same for every chain. The same function
+    reproduces the kernel's draws outside it (``lane = arange(n)``)."""
+    u32 = jnp.uint32
+    pairs = (d + 1) // 2
+    base = jnp.asarray(step).astype(u32) * u32(pairs + 1)
+    j0, _ = threefry2x32(k0, k1, u32(0xFFFFFFFF), jnp.asarray(step).astype(u32))
+    z = []
+    for j in range(pairs):
+        b0, b1 = threefry2x32(k0, k1, lane, base + u32(j))
+        r = jnp.sqrt(-2.0 * jnp.log(1.0 - _uniform(b0)))
+        theta = jnp.float32(2.0 * np.pi) * _uniform(b1)
+        z += [r * jnp.cos(theta), r * jnp.sin(theta)]
+    a0, _ = threefry2x32(k0, k1, lane, base + u32(pairs))
+    return _uniform(j0), z[:d], 1.0 - _uniform(a0)
 
 
-def _kernel(n_steps, L, eps, eps_jitter, collect_idx, n_res, staged,
-            injected, has_stream, stream_hbm, *refs):
+def _kernel(n_steps, L, eps, eps_jitter, collect_idx, d, block, n_res,
+            staged, injected, has_stream, *refs):
     import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from ..utils import sqrt_mass_safe
 
     refs = list(refs)
-    if stream_hbm:
-        # HBM-tiled dataset: the table rides in HBM (memory_space=ANY)
-        # and streams through an SMEM scratch tile + DMA semaphore
-        # appended after the outputs (scalarize._stream_loop_hbm)
-        sem_ref = refs.pop()
-        scratch_ref = refs.pop()
-    v_ref, seed_ref, res_ref, mass_ref = refs[:4]
+    x_ref, seed_ref, res_ref, mass_ref = refs[:4]
     refs = refs[4:]
-    # SMEM-resident dataset for streamed (non-collapsible) likelihoods
     data_ref = refs.pop(0) if has_stream else None
-    if stream_hbm:
-        data_ref = ("hbm", data_ref, scratch_ref, sem_ref)
     if injected:
-        # host-side PRNG substitute: per-step step sizes / momenta normals /
-        # accept uniforms are precomputed inputs — the kernel logic is
-        # otherwise identical, which is what makes exact kernel-vs-reference
-        # comparison possible (incl. interpret mode on CPU, where the
-        # on-core PRNG has no lowering)
-        eps_ref, z_ref, u_ref, out_ref, vout_ref, acc_ref = refs
-    else:
-        out_ref, vout_ref, acc_ref = refs
+        # testing hook: per-step step sizes / momentum normals / accept
+        # uniforms as inputs, so the kernel can be compared exactly with a
+        # reference consuming the same numbers
+        eps_ref, z_ref, u_ref = refs[:3]
+        refs = refs[3:]
+    out_ref, vout_ref, acc_ref = refs
 
-    # staged residual scalars (everything data-dependent was computed
-    # outside the kernel by the partial-eval pass in scalarize.py)
+    start = pl.program_id(0) * block
+    cols = pl.ds(start, block)
     res = [res_ref[i] for i in range(n_res)]
+    load = None
+    if has_stream:
+        def load(row, first, size):
+            return data_ref[row, pl.ds(first, size)]
 
-    def vag_planes(v):
-        # plane_vag: a ones-cotangent vjp of the scalar part (each output
-        # element depends only on its own chain's coordinates, so it IS
-        # the per-chain gradient) + hand-assembled gradients for any
-        # streamed data terms (scalarize._stream_loop)
-        return staged.plane_vag(v, res, data_ref)
+    def vag(v):
+        lp, g = staged.plane_vag(v, res, load)
+        return lp, tuple(g)
 
-    if not injected:
-        pid = pl.program_id(0).astype(jnp.uint32)
-        pltpu.prng_seed(seed_ref[0],
-                        seed_ref[1] ^ (pid * jnp.uint32(0x9E3779B9)))
-
-    v0 = v_ref[...]
-    lp0, g0 = vag_planes(v0)
-    acc0 = jnp.zeros_like(lp0)
-    plane = lp0.shape
-    d = v0.shape[0]
-    f0 = v0[0] * 0.0
-    # diagonal mass: per-coordinate scalars from SMEM, broadcast ONCE into
-    # a loop-invariant (d, 8, tc) plane; every use is then a single
-    # leading-axis array op instead of a d-way Python unroll (the round-4
-    # de-unroll — keeps the compiled step body O(1) in d, which is what
-    # caused the multi-minute Mosaic compiles near the envelope wall)
-    inv_plane = jnp.stack([f0 + mass_ref[i] for i in range(d)])
-    # inv_mass == 0 freezes a coordinate (infinite mass; zero momentum
-    # draw here, every other momentum use is inv_m-weighted) — the shared
-    # frozen-coordinate convention lives in utils.sqrt_mass_safe
-    from ..utils import sqrt_mass_safe
-    mom_plane = sqrt_mass_safe(inv_plane)
+    k0, k1 = seed_ref[0], seed_ref[1]
+    lane = (start + jax.lax.iota(jnp.int32, block)).astype(jnp.uint32)
+    inv = [mass_ref[k] for k in range(d)]
+    mom_scale = [sqrt_mass_safe(m) for m in inv]
 
     def kin(m):
-        return 0.5 * jnp.sum(inv_plane * m * m, axis=0)
+        return 0.5 * sum(inv[k] * m[k] * m[k] for k in range(d))
+
+    v0 = tuple(x_ref[k, cols] for k in range(d))
+    lp0, g0 = vag(v0)
+    acc0 = jnp.zeros_like(lp0)
 
     def step(i, carry):
         v, lp, g, acc = carry
         if injected:
             eps_i = eps_ref[i]
-            z = z_ref[i]
+            z = [z_ref[i, k, cols] for k in range(d)]
+            u = u_ref[i, cols]
         else:
-            jit_bits = _uniform(pltpu.prng_random_bits((SUB, 128)))
-            eps_i = eps * (1.0 - eps_jitter
-                           + 2.0 * eps_jitter * jit_bits[0, 0])
-            z = _normals(d, plane)
-        mom0 = mom_plane * z
+            eps_u, z, u = step_draws(k0, k1, lane, i, d)
+            eps_i = eps * (1.0 - eps_jitter + 2.0 * eps_jitter * eps_u)
+        mom0 = tuple(mom_scale[k] * z[k] for k in range(d))
 
         def leap(_, c):
             v, m, g, lp = c
-            m = m + (eps_i * 0.5) * g
-            v = v + eps_i * (inv_plane * m)
-            lp, g = vag_planes(v)
-            m = m + (eps_i * 0.5) * g
-            return (v, m, g, lp)
+            m = tuple(m[k] + (eps_i * 0.5) * g[k] for k in range(d))
+            v = tuple(v[k] + eps_i * (inv[k] * m[k]) for k in range(d))
+            lp, g = vag(v)
+            m = tuple(m[k] + (eps_i * 0.5) * g[k] for k in range(d))
+            return v, m, g, lp
 
         v_new, m_new, g_new, lp_new = jax.lax.fori_loop(
             0, L, leap, (v, mom0, g, lp))
-        kin0 = kin(mom0)
-        kin1 = kin(m_new)
-        alpha = lp_new - lp - kin1 + kin0
+        alpha = lp_new - lp - kin(m_new) + kin(mom0)
         alpha = jnp.where(jnp.isnan(alpha), -jnp.inf, alpha)
-        if injected:
-            u = u_ref[i]
-        else:
-            u = jnp.maximum(_uniform(pltpu.prng_random_bits(plane)),
-                            jnp.float32(1.1754944e-38))
-        accept = jnp.log(u) < alpha
-        v = jnp.where(accept[None], v_new, v)
+        accept = jnp.log(jnp.maximum(u, _TINY)) < alpha
+        v = tuple(jnp.where(accept, v_new[k], v[k]) for k in range(d))
+        g = tuple(jnp.where(accept, g_new[k], g[k]) for k in range(d))
         lp = jnp.where(accept, lp_new, lp)
-        g = jnp.where(accept[None], g_new, g)
         acc = acc + accept.astype(jnp.float32)
         if collect_idx is None:
-            out_ref[pl.ds(i, 1)] = v[None]          # all coordinate planes
+            for k in range(d):
+                out_ref[i, k, cols] = v[k]
         else:
-            out_ref[pl.ds(i, 1)] = v[collect_idx][None]
-        return (v, lp, g, acc)
+            out_ref[i, cols] = v[collect_idx]
+        return v, lp, g, acc
 
-    v, lp, g, acc = jax.lax.fori_loop(0, n_steps, step, (v0, lp0, g0, acc0))
-    vout_ref[...] = v
-    acc_ref[...] = acc
-
-
-def auto_tile_hmc(n: int, d: int) -> int:
-    """Chains-per-program tile for the fused HMC kernel.
-
-    At small d the per-program overhead (PRNG seeding, loop bookkeeping,
-    the per-step jitter draw) dominates the tiny state, and fewer,
-    larger programs win: measured on v5e at d=3 / 524k chains, tile=4096
-    runs 193 us/step vs 306 at tile=1024 (1.58x) — a post-vmem-raise
-    dividend (under the old 16 MiB cap only 1024 fit next to history).
-    tile=8192 regresses (236 us) and larger d is unmeasured, so the auto
-    rule stays inside the measured regime; pass ``tile=`` to override.
-    The FSM-NUTS kernel measured best at 1024 at every size tried
-    (136/139/141/159 us/tick for 1k/2k/4k/8k at d=10) and keeps it.
-
-    The 4096 promotion additionally requires the padding waste to be
-    negligible (ADVICE r4): a non-multiple n pads up to 4095 dead chains
-    per call and quadruples the per-step history VMEM, so mid-size chain
-    counts like n=6000 would REGRESS under the blanket rule — promote
-    only when n is a multiple of 4096 or large enough (>= 16 tiles) that
-    the dead-chain fraction is < ~6%. The band itself is now measured at
-    BOTH ends (ADVICE r4's other ask): d=3 1.58x and d=12 1.24x for
-    4096 over 1024 (524k chains, 50 steps, median-of-3, round 5)."""
-    if d <= 16 and n >= 4096 and (n % 4096 == 0 or n >= 16 * 4096):
-        return 4096
-    return _DEF_TILE
+    v, _, _, acc = jax.lax.fori_loop(0, n_steps, step, (v0, lp0, g0, acc0))
+    for k in range(d):
+        vout_ref[k, cols] = v[k]
+    acc_ref[cols] = acc
 
 
-def _to_planes(values, tile):
-    """(n, d) -> (d, 8, n_pad/8) plane layout: chain j sits at
-    ``[:, j // (n_pad/8), j % (n_pad/8)]`` (the cheap transpose-reshape —
-    any consistent bijection works; this one makes un-flattening a plain
-    reshape). Pads with copies of chain 0 (finite logp guaranteed)."""
-    n, d = values.shape
-    n_pad = ((n + tile - 1) // tile) * tile
-    if n_pad != n:
-        values = jnp.concatenate(
-            [values, jnp.broadcast_to(values[0], (n_pad - n, d))], axis=0)
-    return values.T.reshape(d, SUB, n_pad // SUB), n_pad
+def stage_for_kernel(logp: Callable, d: int):
+    """``(staged, None)`` when ``logp`` stages into the kernel, else
+    ``(None, reason)``. Staging refuses oversized or non-float residuals
+    up front; unsupported residual primitives (``while_loop``, traced
+    gathers, non-additive data sums) refuse when the plane function is
+    traced, so both the value and the gradient path are probed here."""
+    from .scalarize import stage_scalarized
+    try:
+        staged = stage_scalarized(logp, d)
+        res = [staged.res_consts[i]
+               for i in range(int(staged.res_consts.shape[0]))]
+        data = staged.stream_data
+        jax.eval_shape(
+            lambda v: staged.plane_vag(v, res, data),
+            jax.ShapeDtypeStruct((d, 8), jnp.float32))
+    except (NotImplementedError, ValueError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    return staged, None
 
 
-def _from_planes(planes, n):
-    d = planes.shape[0]
-    return planes.reshape(d, -1).T[:n]
+def _pad_lanes(x, n_pad, axis):
+    """Pad ``axis`` to ``n_pad`` with copies of index 0 (finite logp)."""
+    n = x.shape[axis]
+    if n == n_pad:
+        return x
+    first = jax.lax.slice_in_dim(x, 0, 1, axis=axis)
+    shape = list(x.shape)
+    shape[axis] = n_pad - n
+    return jnp.concatenate([x, jnp.broadcast_to(first, shape)], axis=axis)
+
+
+def _kernel_call(key, staged, values0, n_steps, L, eps, eps_jitter,
+                 collect_idx, inv_mass, injected_rng, interpret):
+    import jax.experimental.pallas as pl
+    from jax.experimental.pallas import triton as plt
+
+    n, d = values0.shape
+    block = _BLOCK
+    n_pad = -(-n // block) * block
+    planes = _pad_lanes(values0.T, n_pad, 1)                 # (d, n_pad)
+    has_stream = staged.stream_data is not None
+    seed = jax.random.key_data(key).astype(jnp.uint32).reshape(-1)[:2]
+    inputs = [planes, seed, staged.res_consts, inv_mass]
+    if has_stream:
+        inputs.append(staged.stream_data)
+    if injected_rng is not None:
+        eps_steps, z_all, u_all = injected_rng
+        inputs += [jnp.asarray(eps_steps, jnp.float32).reshape(n_steps),
+                   _pad_lanes(jnp.moveaxis(jnp.asarray(z_all, jnp.float32),
+                                           2, 1), n_pad, 2),
+                   _pad_lanes(jnp.asarray(u_all, jnp.float32), n_pad, 1)]
+    hist_shape = ((n_steps, n_pad) if collect_idx is not None
+                  else (n_steps, d, n_pad))
+    out, vout, acc = pl.pallas_call(
+        functools.partial(_kernel, n_steps, L, float(eps), float(eps_jitter),
+                          collect_idx, d, block,
+                          int(staged.res_consts.shape[0]), staged,
+                          injected_rng is not None, has_stream),
+        grid=(n_pad // block,),
+        out_shape=(jax.ShapeDtypeStruct(hist_shape, jnp.float32),
+                   jax.ShapeDtypeStruct((d, n_pad), jnp.float32),
+                   jax.ShapeDtypeStruct((n_pad,), jnp.float32)),
+        input_output_aliases={0: 1},
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=_NUM_WARPS,
+                                           num_stages=1),
+        interpret=interpret,
+        name="hmc_fused",
+    )(*inputs)
+    values = vout[:, :n].T
+    if collect_idx is None:
+        collected = jnp.moveaxis(out[:, :, :n], 1, 2)
+    else:
+        collected = out[:, :n]
+    return values, collected, acc[:n]
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "logp", "n_steps", "L", "eps", "eps_jitter", "collect_idx", "tile",
-    "use_pallas", "interpret"))
+    "logp", "n_steps", "L", "eps", "eps_jitter", "collect_idx",
+    "interpret"))
 def hmc_chains_fused(key, logp: Callable, values0, n_steps: int,
                      L: int = 10, eps: float = 0.1,
                      eps_jitter: float = 0.2,
                      collect_idx: Optional[int] = 0,
-                     tile: Optional[int] = None,
                      inv_mass_diag=None,
-                     use_pallas: Optional[bool] = None,
                      injected_rng=None, interpret: bool = False):
     """Run ``n_steps`` full HMC updates on (n_chains, d) ``values0``.
 
     Returns ``(values (n, d), collected, accept_counts (n,))`` where
     ``collected`` is ``(n_steps, n)`` holding coordinate ``collect_idx``
     after each step, or ``(n_steps, n, d)`` (all coordinates) when
-    ``collect_idx=None`` — size your HBM accordingly at large chain counts.
-    ``logp`` must be a hashable traceable callable (a plain function or
-    e.g. ``FlatTarget(...).logp``; it is a static argument).
-    ``inv_mass_diag``: optional (d,) inverse-mass diagonal (may be traced —
-    it enters the kernel as SMEM scalars). ``use_pallas=None``
-    auto-dispatches: the fused kernel on TPU, the XLA path elsewhere.
+    ``collect_idx=None`` — size device memory accordingly at large chain
+    counts. ``logp`` must be a hashable traceable callable (a plain
+    function or e.g. ``FlatTarget(...).logp``; it is a static argument).
+    ``inv_mass_diag``: optional (d,) inverse-mass diagonal (may be traced).
 
-    Testing hooks: ``injected_rng=(step_sizes (n_steps,), z (n_steps, n, d),
-    u (n_steps, n))`` replaces the on-core PRNG with precomputed step
-    sizes / momentum normals / accept uniforms, making the kernel exactly
-    reproducible against a reference implementation; ``interpret=True``
-    runs the kernel under the Pallas TPU interpreter (CPU), which is how
-    CI exercises the real kernel logic (tests/test_hmc_fused.py)."""
-    if use_pallas is None:
-        from .resample import on_tpu
-        use_pallas = on_tpu()
-    if interpret:
-        use_pallas = True
-    if injected_rng is not None and not use_pallas:
-        raise ValueError("injected_rng requires the Pallas path "
-                         "(use_pallas=True or interpret=True)")
+    Where it runs is decided by :func:`gen_tpu.ops.backend.hmc_kernel_route`:
+    the kernel on the GPU for ``d`` up to the measured crossover when the
+    logp stages, the XLA sampler (:func:`~gen_tpu.inference.hmc.hmc_chains`,
+    same semantics, another random stream) otherwise.
+
+    Testing hooks: ``interpret=True`` runs the kernel in Pallas' interpret
+    mode (how the CPU tests exercise its logic); ``injected_rng=(step_sizes
+    (n_steps,), z (n_steps, n, d), u (n_steps, n))`` replaces the kernel's
+    generator with precomputed step sizes / momentum normals / accept
+    uniforms, for exact comparison with a reference."""
+    from .backend import hmc_kernel_route
     values0 = jnp.asarray(values0, jnp.float32)
     n, d = values0.shape
-    if tile is None:
-        tile = auto_tile_hmc(n, d)
     inv_mass = (jnp.ones((d,), jnp.float32) if inv_mass_diag is None
                 else jnp.asarray(inv_mass_diag, jnp.float32))
+    staged = None
+    if interpret or hmc_kernel_route(d):
+        staged, reason = stage_for_kernel(logp, d)
+        if staged is None and (interpret or injected_rng is not None):
+            raise ValueError(f"logp does not stage into the kernel: {reason}")
+    if injected_rng is not None and staged is None:
+        raise ValueError("injected_rng drives the kernel, which does not run "
+                         "here (pass interpret=True off the GPU)")
+    if staged is not None:
+        return _kernel_call(key, staged, values0, n_steps, L, eps,
+                            eps_jitter, collect_idx, inv_mass, injected_rng,
+                            interpret)
 
-    if not use_pallas:
-        # identical semantics via the XLA path (different RNG stream)
-        from types import SimpleNamespace
-        from ..inference.hmc import hmc_chains
-        target = SimpleNamespace(value_and_grad=jax.value_and_grad(logp))
-        collect = ((lambda v: v) if collect_idx is None
-                   else (lambda v: v[:, collect_idx]))
-        values, collected, accepts = hmc_chains(
-            key, target, values0, n_steps=n_steps, L=L, eps=eps,
-            eps_jitter=eps_jitter, inv_mass_diag=inv_mass, collect=collect)
-        return values, collected, jnp.sum(accepts, axis=0).astype(jnp.float32)
-
-    check_vmem_envelope("hmc", d, tile,
-                        hist_planes=(d if collect_idx is None else 1),
-                        num_ticks=n_steps)
-
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    planes, n_pad = _to_planes(values0, tile)
-    tc = tile // SUB
-    cols = n_pad // SUB
-    grid = cols // tc
-
-    # stage the logp: partial-evaluate the data-only subgraph OUTSIDE the
-    # kernel (it runs once per call, XLA-side) and scalarize the residual
-    # into full-tile plane ops — see ops/scalarize.py for why vmap cannot
-    # do this job on TPU
-    from .scalarize import stage_scalarized
-    staged = stage_scalarized(logp, d)
-    res_consts = staged.res_consts
-    has_stream = staged.stream_data is not None
-
-    seed = jax.random.key_data(key).astype(jnp.uint32).reshape(-1)[:2]
-
-    if collect_idx is None:
-        out_shape = jax.ShapeDtypeStruct((n_steps, d, SUB, cols),
-                                         jnp.float32)
-        out_spec = pl.BlockSpec((n_steps, d, SUB, tc),
-                                lambda i: (0, 0, 0, i),
-                                memory_space=pltpu.VMEM)
-    else:
-        out_shape = jax.ShapeDtypeStruct((n_steps, SUB, cols), jnp.float32)
-        out_spec = pl.BlockSpec((n_steps, SUB, tc), lambda i: (0, 0, i),
-                                memory_space=pltpu.VMEM)
-
-    in_specs = [pl.BlockSpec((d, SUB, tc), lambda i: (0, 0, i),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM)]
-    inputs = [planes, seed, res_consts, inv_mass]
-    scratch_shapes = []
-    if has_stream:
-        if staged.stream_hbm:
-            # oversized dataset: stays in HBM, streamed through an SMEM
-            # scratch tile by in-kernel DMA (scalarize._stream_loop_hbm)
-            in_specs.append(pl.BlockSpec(memory_space=pltpu.ANY))
-            scratch_shapes = [
-                pltpu.SMEM(staged.stream_scratch_shape, jnp.float32),
-                pltpu.SemaphoreType.DMA]
-        else:
-            # the dataset rides in SMEM next to the residual scalars
-            in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-        inputs.append(staged.stream_data)
-    if injected_rng is not None:
-        eps_steps, z_all, u_all = injected_rng
-        eps_steps = jnp.asarray(eps_steps, jnp.float32).reshape(n_steps)
-        # (n_steps, n, d) -> (n_steps, d, SUB, cols) plane layout, padded
-        # consistently with _to_planes
-        def to_plane_steps(x):
-            pad = jnp.concatenate(
-                [x, jnp.broadcast_to(x[:, :1], (n_steps, n_pad - n)
-                                     + x.shape[2:])], axis=1) \
-                if n_pad != n else x
-            if pad.ndim == 3:
-                return jnp.moveaxis(pad, 2, 1).reshape(n_steps, d, SUB,
-                                                       cols)
-            return pad.reshape(n_steps, SUB, cols)
-        z_p = to_plane_steps(jnp.asarray(z_all, jnp.float32))
-        u_p = to_plane_steps(jnp.asarray(u_all, jnp.float32))
-        in_specs += [pl.BlockSpec(memory_space=pltpu.SMEM),
-                     pl.BlockSpec((n_steps, d, SUB, tc),
-                                  lambda i: (0, 0, 0, i),
-                                  memory_space=pltpu.VMEM),
-                     pl.BlockSpec((n_steps, SUB, tc), lambda i: (0, 0, i),
-                                  memory_space=pltpu.VMEM)]
-        inputs += [eps_steps, z_p, u_p]
-
-    out, vout, acc = pl.pallas_call(
-        functools.partial(_kernel, n_steps, L, float(eps),
-                          float(eps_jitter),
-                          None if collect_idx is None else int(collect_idx),
-                          res_consts.shape[0], staged,
-                          injected_rng is not None, has_stream,
-                          bool(has_stream and staged.stream_hbm)),
-        grid=(grid,),
-        # state planes donate their HBM buffer to the final-state output
-        input_output_aliases={0: 1},
-        scratch_shapes=scratch_shapes,
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=VMEM_LIMIT),
-        out_shape=(out_shape,
-                   jax.ShapeDtypeStruct((d, SUB, cols), jnp.float32),
-                   jax.ShapeDtypeStruct((SUB, cols), jnp.float32)),
-        in_specs=in_specs,
-        out_specs=(out_spec,
-                   pl.BlockSpec((d, SUB, tc), lambda i: (0, 0, i),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((SUB, tc), lambda i: (0, i),
-                                memory_space=pltpu.VMEM)),
-        interpret=(pltpu.InterpretParams() if interpret else False),
-    )(*inputs)
-
-    values = _from_planes(vout, n)
-    if collect_idx is None:
-        collected = jnp.moveaxis(
-            out.reshape(n_steps, d, n_pad), 1, 2)[:, :n, :]
-    else:
-        collected = out.reshape(n_steps, n_pad)[:, :n]
-    acc_counts = acc.reshape(-1)[:n]
-    return values, collected, acc_counts
-
-
-def hmc_chains_fused_chunked(key, logp: Callable, values0, n_steps: int,
-                             chunk_steps: Optional[int] = None,
-                             vmem_budget_bytes: int = VMEM_LIMIT - (4 << 20), **kw):
-    """Drive :func:`hmc_chains_fused` in step chunks and concatenate the
-    collected histories (ADVICE r3: with ``collect_idx=None`` the
-    per-step all-coordinate history block is double-buffered in scoped
-    VMEM, so ``n_steps`` at any d >= 2 blows the envelope in one call —
-    the fused ENGINE must chunk, exactly like the NUTS chunker). A chunk
-    boundary is exact for fixed-L HMC: the chain state is the full
-    sampler state, each chunk continues with a fresh fold of ``key``.
-    Chunks are sized so history + live state fit the same budget
-    :func:`check_vmem_envelope` enforces. Returns the same
-    ``(values, collected, accept_counts)`` as one fused call."""
-    values0 = jnp.asarray(values0, jnp.float32)
-    n, d = values0.shape
-    ci = kw.get("collect_idx", 0)
-    # resolve the tile the same way hmc_chains_fused will, so the chunk
-    # sizing and the kernel's envelope check agree
-    tile = kw.get("tile") or auto_tile_hmc(n, d)
-    per_step = (d if ci is None else 1) * tile * 4
-    if chunk_steps is None:
-        state_b = state_plane_bytes("hmc", d, tile)
-        hist_budget = (vmem_budget_bytes - state_b) // 2
-        if hist_budget < per_step:
-            raise ValueError(
-                f"hmc_chains_fused_chunked: even a 1-step history chunk "
-                f"({per_step / 2**20:.1f} MB double-buffered) does not fit "
-                f"next to the live state ({state_b / 2**20:.1f} MB) in the "
-                f"~{vmem_budget_bytes / 2**20:.0f} MB scoped-VMEM budget; "
-                "collect a single coordinate (collect_idx=<int>) or reduce "
-                "d / use the XLA path")
-        chunk_steps = max(1, min(n_steps, hist_budget // per_step))
-    chunks = []
-    acc = jnp.zeros((n,), jnp.float32)
-    values = values0
-    done = 0
-    while done < n_steps:
-        t = int(min(chunk_steps, n_steps - done))
-        key, k_use = jax.random.split(key)
-        values, collected, acc_c = hmc_chains_fused(
-            k_use, logp, values, n_steps=t, **kw)
-        chunks.append(collected)
-        acc = acc + acc_c
-        done += t
-    return values, jnp.concatenate(chunks, axis=0), acc
-
-
-def state_plane_bytes(kernel: str, d: int, tile: int,
-                      max_depth: int = 0) -> int:
-    """VMEM footprint of the kernel's live chain-block state (excluding
-    the per-tick history block) — shared by :func:`check_vmem_envelope`
-    and the chunked drivers, which must size history chunks out of the
-    SAME budget. Plane counts were calibrated against measured hardware
-    boundaries under the compiler's old 16 MiB default scoped-vmem cap
-    (benchmarks/envelope_probe.py: hmc fit d=320 / aborted 384;
-    nuts(md8) fit 120 / aborted 128; nuts(md6) fit 128 / aborted 144 —
-    the d=102 exact-fit abort pinned the model to within 352 KB), and
-    the same model correctly predicted the post-raise sweep (nuts md8
-    d=768 models to ~94 MiB of the 100 MiB cap and compiles; hmc d=2048
-    ~100 MiB, compiles). The carried NUTS layout is
-    17 f32 d-planes + 2 mass planes + (max_depth-1) packed bf16x2
-    checkpoint planes (levels 1..max_depth-1; level max_depth can never
-    complete a block inside a <= 2^(max_depth-1)-leapfrog subtree, and
-    slot 0 was never used — the pre-round-4 layout carried
-    2*(max_depth+1) f32 planes for the same information); the fitted
-    constant is larger than the carry because it also covers the
-    double-buffered final-state/stats output blocks and Mosaic
-    temporaries. Chunked drivers must size history chunks with slack
-    below the cap (their default budget is VMEM_LIMIT - 4 MiB) — an
-    exactly-at-budget chunk measured 352 KB over under the old cap."""
-    # d-proportional live planes PLUS a d-independent fixed block
-    # (double-buffered cnt/stat outputs, PRNG buffers, Mosaic
-    # temporaries): usage = fixed + planes * d * tile * 4. The fixed
-    # term is what the d=102 exact-fit abort exposed — a pure per-d
-    # model fit the small-history boundaries but under-protected
-    # large-history chunks by exactly that overhead.
-    if kernel == "hmc":
-        return 12 * d * tile * 4
-    if kernel == "nuts_paired":
-        # round-5 scratch-state pair kernel: 16 f32 + (md-1) int32
-        # scratch planes + the two-leapfrog tick body's larger live
-        # temporary set. Anchored on REAL hardware aborts (the first
-        # post-cap-raise ones): d=512 md8 compiles (~22 s), d=576+
-        # aborts; d=768 reported 143.21M used of the 128M physical
-        # VMEM. Model (49 + md) planes: est(512, md8) = 114 MB OK,
-        # est(576, md8) = 128.3 MB reject.
-        return (49 + max_depth) * d * tile * 4 + 2200 * tile
-    return (21 + max_depth) * d * tile * 4 + 2200 * tile
-
-
-def check_vmem_envelope(kernel: str, d: int, tile: int, max_depth: int = 0,
-                        hist_planes: int = 1, num_ticks: int = 0,
-                        budget_bytes: int = VMEM_LIMIT):
-    """Pre-compile dimension/VMEM envelope check (VERDICT r2 item 9).
-
-    The fused kernels keep the whole chain-block state VMEM-resident; the
-    per-program footprint is ~``planes_live * d * tile * 4`` bytes plus the
-    per-tick history block, against the ``VMEM_LIMIT`` scoped-vmem cap
-    (raised from the compiler's conservative 16 MiB default to 100 MiB —
-    v5e has 128 MiB of physical VMEM and these kernels are the whole
-    program). Measured envelope on v5e (trivial logp, tile=1024;
-    round-4 layout — de-unrolled mass planes, bf16x2-packed U-turn
-    checkpoints, dead checkpoint levels pruned, raised vmem cap;
-    benchmarks/envelope_probe.py):
-
-    | kernel     | config       | max d probed OK | compile at max |
-    |------------|--------------|-----------------|----------------|
-    | hmc_fused  | tile=1024    | 2048            | ~220 s         |
-    | nuts_fused | max_depth=8  | 768             | ~440 s         |
-    | nuts_fused | max_depth=6  | 512             | ~170 s         |
-
-    No hardware abort was reached in the post-raise sweep — the probed
-    maxima sit at/near this estimator's 100 MiB budget (nuts md8 d=768
-    models to ~94 MiB), and COMPILE TIME (~0.5 s per unit d for NUTS) is
-    now the practical constraint, not VMEM. History of the wall: the
-    round-3 layout topped out at hmc d=256 / nuts(md8) d=64 under the
-    16 MiB default; the round-4 packed-checkpoint layout reached
-    hmc 320 / nuts(md8) 120 / nuts(md6) 128 before the cap was raised.
-
-    ``tile`` cannot shrink below 1024: Pallas requires the minor block dim
-    (tile/8) to be a multiple of 128, so 1024 is already the minimum — the
-    envelope is widened only by reducing d, or (NUTS) ``max_depth``
-    (packed checkpoints cost max_depth-1 planes), or by the XLA path.
-    This estimator raises a clear, actionable error BEFORE a remote
-    compile ends in an opaque Mosaic scoped-VMEM abort."""
-    if tile % 1024 != 0:
-        raise ValueError(
-            f"{kernel}_fused: tile={tile} is invalid — Pallas TPU requires "
-            "the minor block dimension (tile/8) to be a multiple of 128, "
-            "so tile must be a multiple of 1024")
-    plane_bytes = tile * 4
-    # the history output block is double-buffered by Mosaic (measured:
-    # a 10.5MB-history chunk showed up as a 20.8MB scoped allocation on
-    # a ~1.8MB-state kernel), so it counts twice
-    est = (state_plane_bytes(kernel, d, tile, max_depth)
-           + 2 * hist_planes * num_ticks * plane_bytes)
-    if est > budget_bytes:
-        raise ValueError(
-            f"{kernel}_fused estimated VMEM footprint {est / 2**20:.1f} MB "
-            f"(d={d}, tile={tile}"
-            + (f", max_depth={max_depth}" if kernel != "hmc" else "")
-            + f") exceeds the ~{budget_bytes / 2**20:.0f} MB scoped-VMEM "
-            "BUDGET (an estimator calibrated against measured aborts "
-            "under the old 16 MiB default; no post-raise hardware abort "
-            "has been observed, so rejections just above the probed "
-            "maxima are model-extrapolated — see the docstring table). "
-            "tile=1024 is already the minimum. Reduce d"
-            + (", lower max_depth (packed checkpoints cost max_depth-1 "
-               "planes)," if kernel != "hmc" else "")
-            + " or use the XLA path (use_pallas=False)."
-            " See ops/hmc_fused.py:check_vmem_envelope for the measured "
-            "envelope table.")
-    return est
+    from types import SimpleNamespace
+    from ..inference.hmc import hmc_chains
+    target = SimpleNamespace(value_and_grad=jax.value_and_grad(logp))
+    collect = ((lambda v: v) if collect_idx is None
+               else (lambda v: v[:, collect_idx]))
+    values, collected, accepts = hmc_chains(
+        key, target, values0, n_steps=n_steps, L=L, eps=eps,
+        eps_jitter=eps_jitter, inv_mass_diag=inv_mass, collect=collect)
+    return values, collected, jnp.sum(accepts, axis=0).astype(jnp.float32)

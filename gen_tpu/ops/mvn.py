@@ -1,21 +1,20 @@
-"""MXU-path multivariate-normal kernels.
+"""Batched multivariate-normal kernels.
 
 The reference's mvnormal (distributions/mvnormal.jl) scores one vector at a
-time through a dense solve. On TPU the hot use is *batched*: N particles /
+time through a dense solve. The hot use here is *batched*: N particles /
 chains scoring against ONE shared covariance (SMC importance weights, HMC
 on collapsed models, BBVI minibatches). The right formulation is:
 
     precompute  L    = chol(cov)            once   (O(D^3), f32)
                 Linv = L^{-1}               once   (O(D^3), f32)
-    per batch   Z    = (X - mu) @ Linv.T           (N x D @ D x D -> MXU)
+    per batch   Z    = (X - mu) @ Linv.T           (N x D @ D x D matmul)
                 logp = -0.5*(rowsum(Z*Z) + logdet + D*log(2*pi))
 
-The batched work is a plain matmul, which XLA tiles straight onto the MXU
-(a vmapped cho_solve lowers to a batched triangular solve — serial in D,
-VPU-bound). Because the matmul accumulates in f32 regardless of input
-dtype, a ``dtype=jnp.bfloat16`` input cast rides the MXU's bf16 path at
-2x the f32 matmul rate: this is the one place in a PPL where bf16 pays
-(CLAUDE.md: VPU elementwise logpdfs do NOT benefit; MXU matmuls do).
+The batched work is a plain matmul, which XLA hands to its matrix-product
+path (a vmapped cho_solve lowers to a batched triangular solve — serial
+in D). The default path runs it at full f32 precision. A
+``dtype=jnp.bfloat16`` input cast (f32 accumulation) takes the
+low-precision matrix path instead.
 
 bf16 accuracy note: the residual cast loses ~3 decimal digits of the
 *residual*, so per-row logpdf error grows like O(||z|| * 2^-8 * sqrt(D)).
@@ -32,6 +31,13 @@ import jax
 import jax.numpy as jnp
 
 _LOG_2PI = 1.8378770664093453
+
+
+def _precision(dtype):
+    """Full f32 precision on the default path (a GPU would otherwise run
+    f32 matmuls in TF32); the explicit low-precision opt-in keeps the
+    error the module docstring states."""
+    return jax.lax.Precision.HIGHEST if dtype is None else None
 
 
 class MvnChol(NamedTuple):
@@ -58,7 +64,7 @@ def mvn_logpdf_rows(x, mu, prec: MvnChol,
     from :func:`mvn_precompute`.
 
     ``dtype=jnp.bfloat16`` casts the residuals and Linv for the matmul
-    (f32 accumulation via preferred_element_type — MXU native mode).
+    (f32 accumulation via preferred_element_type).
     Returns (N,) in f32 (or the input float dtype if wider).
     """
     x = jnp.asarray(x)
@@ -72,7 +78,7 @@ def mvn_logpdf_rows(x, mu, prec: MvnChol,
     z = jax.lax.dot_general(
         d, linv,
         dimension_numbers=(((d.ndim - 1,), (1,)), ((), ())),
-        preferred_element_type=out_dtype)
+        precision=_precision(dtype), preferred_element_type=out_dtype)
     k = x.shape[-1]
     quad = jnp.sum(z * z, axis=-1)
     return (-0.5 * (quad + prec.logdet + k * _LOG_2PI)).astype(out_dtype)
@@ -80,7 +86,7 @@ def mvn_logpdf_rows(x, mu, prec: MvnChol,
 
 def mvn_sample_rows(key, mu, prec_or_cov, n: int,
                     dtype: Optional[jnp.dtype] = None) -> jnp.ndarray:
-    """Draw n samples from N(mu, cov) as an (n, D) matrix via one MXU
+    """Draw n samples from N(mu, cov) as an (n, D) matrix via one
     matmul: X = mu + E @ L.T with E ~ N(0, I)."""
     if isinstance(prec_or_cov, MvnChol):
         # invert back: L = linv^{-1}; cheaper to require cov/chol here
@@ -99,5 +105,6 @@ def mvn_sample_rows(key, mu, prec_or_cov, n: int,
     x = jax.lax.dot_general(
         eps, chol,
         dimension_numbers=(((1,), (1,)), ((), ())),
+        precision=_precision(dtype),
         preferred_element_type=jnp.result_type(mu.dtype, jnp.float32))
     return mu + x

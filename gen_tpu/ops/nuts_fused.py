@@ -1,34 +1,23 @@
-"""Fused many-chain FSM-NUTS as a single Pallas TPU kernel.
+"""Many-chain FSM-NUTS as one compiled XLA program.
 
-The XLA FSM-NUTS (:mod:`gen_tpu.inference.nuts_fsm`) already fixed the
-vmap-lockstep waste — every chain does exactly one real leapfrog per global
-tick. What it cannot fix from XLA is the MEMORY traffic: the FSM carries
-~`17 + 2*(max_depth+1)` d-vectors of per-chain state (tree endpoints,
-candidates, momentum checkpoints) and a scan tick round-trips all of it
-through HBM. At 100k+ chains that — not the gradient — is the bottleneck,
-exactly the failure mode the fused HMC kernel (ops/hmc_fused.py) solved
-for fixed-L trajectories.
+:func:`nuts_chains_fused` vmaps the pair-scheduled FSM-NUTS engine
+(:func:`gen_tpu.inference.nuts_fsm.nuts_fsm_paired`) over chains: every
+chain does real leapfrog work every tick, with no vmap lockstep on tree
+depth, and the whole run is one call. All bookkeeping — power-of-two
+momentum checkpoints, block-end U-turn tests, progressive multinomial
+candidate selection, biased tree merging, trajectory completion — is
+branchless per-chain arithmetic.
 
-This kernel runs the ENTIRE FSM schedule with a block of chains resident
-in VMEM: per-tick HBM traffic collapses to one collected row (the
-``collect_idx`` coordinate of the current sample). All bookkeeping —
-power-of-two momentum checkpoints, block-end U-turn tests, progressive
-multinomial candidate selection, biased tree merging, trajectory
-completion — is branchless full-tile plane arithmetic on the same
-``(d, 8, tile/8)`` layout as the HMC kernel; the only gradient work per
-tick is one ``plane_fn`` vjp (the scalarized GFI assess-logp from
-ops/scalarize.py).
-
-Tick semantics are IDENTICAL to ``nuts_fsm`` (same iterative multinomial
-NUTS as nuts.py, same checkpoint scheme incl. the in-block boundary-
-momentum fix); the injected-randomness mode makes that checkable exactly:
-tests/test_nuts_fused.py runs this kernel under the Pallas TPU interpreter
-on CPU against ``nuts_fsm`` consuming the same host-side randomness.
+The per-chain state is about ``16 + (max_depth - 1)`` d-vectors (tree
+endpoints, candidates, checkpoints). At 131,072 chains and d=10 that is
+about 120 MB, more than the card's 50 MB L2, so every tick streams it
+through device memory; what a hand-written kernel could still save is
+launch overhead, which only a trace can size (see ROADMAP).
 
 Reference lineage: the NUTS semantics follow Hoffman & Gelman (2014) as
 adopted by the reference's HMC family (inference/hmc.jl:25-73 is its only
-dynamic-trajectory-free ancestor); the FSM scheduling and the VMEM-resident
-formulation are TPU-native design with no reference analogue.
+dynamic-trajectory-free ancestor); the FSM scheduling has no reference
+analogue.
 """
 
 from __future__ import annotations
@@ -38,10 +27,6 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-
-from .hmc_fused import SUB, _DEF_TILE, VMEM_LIMIT, _normals, \
-    _to_planes, _from_planes, _uniform
 
 
 def extract_completed_draws(hist, hist_cnt, m: int):
@@ -60,60 +45,62 @@ def extract_completed_draws(hist, hist_cnt, m: int):
         0, 1)
 
 
-def _nuts_chunk_ticks(d, tile, max_depth, per_tick, num_ticks,
-                      vmem_budget_bytes, kernel="nuts"):
-    """Largest history-chunk tick count that fits next to the live kernel
-    state in the scoped-VMEM budget; raises the actionable envelope error
-    UP FRONT when even one tick cannot fit (ADVICE r3 — previously a
-    64-tick floor pushed the failure into the first in-loop kernel call)."""
-    from .hmc_fused import state_plane_bytes
-    state_b = state_plane_bytes(kernel, d, tile, max_depth)
-    hist_budget = (vmem_budget_bytes - state_b) // 2
-    if hist_budget < per_tick:
-        raise ValueError(
-            f"nuts fused chunking: even a 1-tick history chunk "
-            f"({per_tick / 2**20:.2f} MB double-buffered) does not fit "
-            f"next to the live kernel state ({state_b / 2**20:.1f} MB, "
-            f"d={d}, max_depth={max_depth}) in the "
-            f"~{vmem_budget_bytes / 2**20:.0f} MB scoped-VMEM budget; "
-            "collect a single coordinate (collect_idx=<int>), lower "
-            "max_depth, or use the XLA path (use_pallas=False)")
-    return max(1, min(num_ticks, hist_budget // per_tick))
+@functools.partial(jax.jit, static_argnames=(
+    "logp", "num_ticks", "eps", "max_depth", "collect_idx",
+    "divergence_threshold"))
+def nuts_chains_fused(key, logp: Callable, values0, num_ticks: int,
+                      eps: float, max_depth: int = 8,
+                      inv_mass_diag=None, collect_idx: Optional[int] = 0,
+                      divergence_threshold: float = 1000.0):
+    """Run ``num_ticks`` FSM-NUTS leapfrog slots on (n_chains, d) values.
+
+    Returns ``(values (n, d), hist (pairs, n), hist_counts (pairs, n)
+    int32, counts (n,), stats)`` with ``pairs = ceil(num_ticks / 2)`` (the
+    engine runs two leapfrogs per tick): ``hist[t, j]`` is coordinate
+    ``collect_idx`` (all coordinates, ``(pairs, n, d)``, when
+    ``collect_idx=None``) of chain j's CURRENT sample after tick t
+    (piecewise-constant between trajectory completions — a valid series
+    for autocorrelation ESS, but length-biased for MOMENTS via the
+    inspection paradox); ``hist_counts[t, j]`` is the completed-trajectory
+    count after tick t (it grows by at most 1 per tick), so
+    :func:`extract_completed_draws` extracts each completed draw exactly
+    once; ``counts`` the final completed-trajectory counts; ``stats`` a
+    dict with ``mean_accept``/``mean_depth``/``num_divergent`` per chain.
+    ``eps`` is static; ``inv_mass_diag`` may be traced."""
+    from ..inference.nuts_fsm import nuts_fsm_paired
+    values0 = jnp.asarray(values0, jnp.float32)
+    n, d = values0.shape
+    inv_mass = (jnp.ones((d,), jnp.float32) if inv_mass_diag is None
+                else jnp.asarray(inv_mass_diag, jnp.float32))
+    vag = jax.value_and_grad(logp)
+    ci = "all" if collect_idx is None else collect_idx
+    res, (hist, hist_cnt) = jax.vmap(
+        lambda kk, t: nuts_fsm_paired(
+            kk, vag, t, eps, (num_ticks + 1) // 2, max_depth=max_depth,
+            inv_mass_diag=inv_mass,
+            divergence_threshold=divergence_threshold,
+            collect_idx=ci))(jax.random.split(key, n), values0)
+    stats = dict(mean_accept=res.mean_accept, mean_depth=res.mean_depth,
+                 num_divergent=res.num_divergent)
+    return (res.theta, jnp.moveaxis(hist, 0, 1), hist_cnt.T, res.counts,
+            stats)
 
 
 def nuts_chains_fused_chunked(key, logp, values0, num_ticks: int,
                               eps: float, chunk_ticks: Optional[int] = None,
-                              vmem_budget_bytes: int = VMEM_LIMIT - (4 << 20), **kw):
-    """Drive :func:`nuts_chains_fused` in tick chunks and stitch the
-    streams: the kernel's per-tick history lives in a VMEM output block
-    (scoped-vmem cap = hmc_fused.VMEM_LIMIT), so long runs must be split. A
-    chunk boundary restarts the in-flight trajectory from the current
-    sample — a valid transition boundary; only the partial trajectory's
-    leapfrogs are discarded. ``hist_counts`` is returned CUMULATIVE across
-    chunks, so ``extract_completed_draws`` works on the stitched streams
-    unchanged. Stats are count-weighted across chunks."""
+                              **kw):
+    """:func:`nuts_chains_fused` in tick chunks of ``chunk_ticks``, with
+    the streams stitched: one call when ``chunk_ticks`` is None. A chunk
+    boundary restarts the in-flight trajectory from the current sample — a
+    valid transition boundary; only the partial trajectory's leapfrogs are
+    discarded. ``hist_counts`` is returned CUMULATIVE across chunks, so
+    ``extract_completed_draws`` works on the stitched streams unchanged.
+    Stats are count-weighted across chunks."""
+    if chunk_ticks is None:
+        return nuts_chains_fused(key, logp, values0, num_ticks=num_ticks,
+                                 eps=eps, **kw)
     values0 = jnp.asarray(values0, jnp.float32)
     n, d = values0.shape
-    ci = kw.get("collect_idx", 0)
-    tile = kw.get("tile", _DEF_TILE)
-    per_tick = (d + 1 if ci is None else 2) * tile * 4
-    if kw.get("paired"):
-        per_tick = (per_tick + 1) // 2    # one history row per PAIR
-    if chunk_ticks is None:
-        # the history chunk and the kernel's live state share ONE scoped-
-        # VMEM budget; the history block is double-buffered (counts 2x,
-        # measured — see check_vmem_envelope). Size chunks from what the
-        # state leaves over so the envelope check and the chunker agree.
-        # NO minimum-tick floor (ADVICE r3): a floor of 64 made every
-        # per-chunk kernel call violate its own envelope at mid d with
-        # collect_idx=None; small chunks are valid (just more compile/
-        # launch overhead), and the truly-impossible case errors here
-        # with advice instead of deep inside the chunk loop.
-        chunk_ticks = _nuts_chunk_ticks(
-            d, tile, kw.get("max_depth", 8), per_tick, num_ticks,
-            (124 << 20) - (4 << 20) if kw.get("paired")
-            else vmem_budget_bytes,
-            kernel="nuts_paired" if kw.get("paired") else "nuts")
     hists, hcnts = [], []
     cnt_total = jnp.zeros((n,), jnp.int32)
     acc_w = jnp.zeros((n,), jnp.float32)
@@ -150,14 +137,12 @@ def nuts_chains_fused_chunked(key, logp, values0, num_ticks: int,
 
 def nuts_collect_draws(key, logp, values0, num_draws: int, eps: float,
                        max_ticks: Optional[int] = None,
-                       chunk_ticks: Optional[int] = None, **kw):
+                       chunk_ticks: int = 512, **kw):
     """Bounded-memory draw collection: drive :func:`nuts_chains_fused` in
-    chunks, extract each chunk's COMPLETED draws into a fixed
-    ``(num_draws, n[, d])`` buffer, and DISCARD the tick streams — memory
-    is O(num_draws * n) regardless of how many ticks the slowest chain
-    needs (the stitched-stream driver holds O(total_ticks * n), which
-    walls out long diagnostics runs; two separate HBM OOMs this round
-    came from exactly that).
+    chunks of ``chunk_ticks``, extract each chunk's COMPLETED draws into a
+    fixed ``(num_draws, n[, d])`` buffer, and DISCARD the tick streams —
+    memory is O(num_draws * n) regardless of how many ticks the slowest
+    chain needs (the stitched-stream driver holds O(total_ticks * n)).
 
     Returns ``(draws, values, counts, ticks_used)``; ``draws[j, i]`` is
     chain i's (j+1)-th completed-trajectory endpoint (coordinate
@@ -167,16 +152,6 @@ def nuts_collect_draws(key, logp, values0, num_draws: int, eps: float,
     values0 = jnp.asarray(values0, jnp.float32)
     n, d = values0.shape
     ci = kw.get("collect_idx", 0)
-    tile = kw.get("tile", _DEF_TILE)
-    if chunk_ticks is None:
-        per_tick = (d + 1 if ci is None else 2) * tile * 4
-        if kw.get("paired"):
-            per_tick = (per_tick + 1) // 2   # one history row per PAIR
-        chunk_ticks = _nuts_chunk_ticks(
-            d, tile, kw.get("max_depth", 8), per_tick, 4096,
-            (124 << 20) - (4 << 20) if kw.get("paired")
-            else VMEM_LIMIT - (4 << 20),
-            kernel="nuts_paired" if kw.get("paired") else "nuts")
     if max_ticks is None:
         max_ticks = 64 * num_draws
     targets = jnp.arange(1, num_draws + 1)
@@ -225,932 +200,3 @@ def nuts_collect_draws(key, logp, values0, num_draws: int, eps: float,
         if int(jnp.min(base)) >= num_draws:
             break
     return draws, values, base, done
-
-
-def _kernel(num_ticks, max_depth, eps, div_threshold, collect_idx, n_res,
-            staged, injected, has_stream, stream_hbm, *refs):
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    refs = list(refs)
-    if stream_hbm:
-        sem_ref = refs.pop()
-        scratch_ref = refs.pop()
-    v_ref, seed_ref, res_ref, mass_ref = refs[:4]
-    refs = refs[4:]
-    # SMEM-resident dataset for streamed (non-collapsible) likelihoods
-    data_ref = refs.pop(0) if has_stream else None
-    if stream_hbm:
-        data_ref = ("hbm", data_ref, scratch_ref, sem_ref)
-    if injected:
-        (z_ref, u4_ref,
-         out_ref, outc_ref, vout_ref, cnt_ref, stat_ref) = refs
-    else:
-        out_ref, outc_ref, vout_ref, cnt_ref, stat_ref = refs
-
-    res = [res_ref[i] for i in range(n_res)]
-
-    def vag(v):
-        # scalar part: ones-cotangent vjp; streamed data terms: gradients
-        # hand-assembled by scalarize._stream_loop (never differentiates
-        # through the data fori)
-        return staged.plane_vag(v, res, data_ref)
-
-    if not injected:
-        pid = pl.program_id(0).astype(jnp.uint32)
-        pltpu.prng_seed(seed_ref[0],
-                        seed_ref[1] ^ (pid * jnp.uint32(0x9E3779B9)))
-
-    v0 = v_ref[...]
-    d = v0.shape[0]
-    plane = v0.shape[1:]
-    lp0, g0 = vag(v0)
-    # EVERY carried plane must be derived from loaded data, never a splat
-    # constant: Mosaic assigns splats a fully-replicated layout, and the
-    # fori carry then demands an invalid general->replicated relayout of
-    # the loop body's results ("Non-singleton logical dimension is
-    # replicated in destination but not in source")
-    f0 = v0[0] * 0.0
-    i0 = f0.astype(jnp.int32)
-    b0 = f0 > 1.0
-    zd = v0 * 0.0
-    izd = (v0 * 0.0).astype(jnp.int32)     # packed-checkpoint zero plane
-    ninf = f0 - jnp.inf
-    feps = jnp.float32(eps)
-
-    # inv_mass == 0 freezes a coordinate (infinite mass): its momentum
-    # draw is zeroed here, and every other use of momentum flows through
-    # inv_m-weighted products (position update, kinetic, U-turn dots),
-    # so the coordinate never moves and contributes nothing -- this is
-    # how Gibbs-within-NUTS blocks and per-chain conditioning values
-    # ride inside the kernel state (see docs/api.md)
-    #
-    # ROUND-4 de-unroll: the mass enters as SMEM scalars, broadcast ONCE
-    # into a loop-invariant (d, 8, tc) plane; every per-coordinate use
-    # (momentum scale, position update, U-turn/kinetic dots) is then ONE
-    # leading-axis array op instead of a d-way Python unroll — the tick
-    # body's jaxpr goes from O(d * max_depth) to O(max_depth) equations,
-    # which is what killed the d=80 multi-minute Mosaic compiles.
-    from ..utils import sqrt_mass_safe
-    inv_plane = jnp.stack([f0 + mass_ref[i] for i in range(d)])
-    # NOTE: recomputing the sqrt per tick to drop this loop-invariant
-    # plane was tried and made scoped-VMEM WORSE (+1.4 MB at d=128 —
-    # Mosaic's peak-liveness allocator charges in-loop temporaries more
-    # than an invariant buffer); keep it hoisted
-    mom_plane = sqrt_mass_safe(inv_plane)
-
-    def scale_mass(z):
-        return mom_plane * z
-
-    def apply_inv_mass(r):
-        return inv_plane * r
-
-    def dot_im(a, b):
-        return jnp.sum(inv_plane * a * b, axis=0)
-
-    def kinetic(r):
-        return 0.5 * dot_im(r, r)
-
-    # bf16x2 checkpoint packing: each live level's (momentum, rho-sum)
-    # checkpoint pair lives in ONE int32 plane (round-to-nearest-even
-    # bf16 halves, utils.bf16_pack2). Checkpoints feed only the U-turn
-    # dot products — a deterministic, reversal-symmetric stopping rule —
-    # so the rounding changes when trajectories stop, never the
-    # invariant distribution; the XLA reference (nuts_fsm
-    # ckpt_bf16=True) rounds with the same bit arithmetic, keeping the
-    # interpret-mode tick-exactness tests exact.
-    from ..utils import bf16_pack2, bf16_unpack2
-
-    def uturn(rho, r_a, r_b):
-        return (dot_im(rho, r_a) <= 0.0) | (dot_im(rho, r_b) <= 0.0)
-
-    def w1(c, a, b):
-        return jnp.where(c, a, b)
-
-    def wd(c, a, b):
-        return jnp.where(c[None], a, b)
-
-    # state tuple layout (all planes; d-vectors are (d, 8, tc)):
-    # cur_logp / cur_grad are NOT carried: at every fresh tick they are
-    # identical to the candidate planes clp/cg (the trajectory-finish
-    # write sets cur <- cand, and cand is untouched until the next
-    # trajectory's first take overwrites it), so fresh inits read the
-    # candidate planes directly — one fewer carried d-plane and five
-    # fewer per-tick d-plane selects, value-identical (the interpret-mode
-    # tick-exactness tests pin this).
-    state = (
-        v0,                                # 0    cur theta (emitted sample)
-        i0,                                # 1    count
-        f0,                                # 2    energy0
-        v0, zd, g0,                        # 3-5  left theta/r/grad
-        v0, zd, g0,                        # 6-8  right theta/r/grad
-        zd,                                # 9    rho_tree
-        v0, lp0, g0,                       # 10-12 cand theta/logp/grad
-        f0,                                # 13   logw_tree
-        i0,                                # 14   depth
-        f0,                                # 15   alpha_sum
-        i0,                                # 16   nlf
-        f0 + eps,                          # 17   dir_eps
-        i0,                                # 18   sub_n
-        # num_leaves as f32 exp2(depth): Mosaic rejects vector-shift
-        # amounts (left_shift by a per-lane int plane); 2^depth is exact
-        # in f32 for every reachable depth
-        f0 + 1.0,                          # 19   num_leaves
-        v0, zd, g0,                        # 20-22 pt theta/r/grad
-        zd,                                # 23   rho_sub
-        v0, lp0, g0,                       # 24-26 cand_sub theta/logp/grad
-        ninf,                              # 27   logw_sub
-        # 28: packed U-turn checkpoints — ONLY levels 1..max_depth-1 are
-        # live (a level-k block can only COMPLETE inside a subtree of
-        # >= 2^k leapfrogs, and subtrees have at most 2^(max_depth-1):
-        # the level-max_depth ends-test never fires, and slot 0 was never
-        # used), each level's (r, rho-sum) pair bf16x2-packed in one
-        # int32 plane: 2*(max_depth+1) f32 planes -> (max_depth-1) planes
-        tuple(izd for _ in range(max(max_depth - 1, 0))),
-        f0, f0, i0,                        # 29-31 accept_sum/depth_sum/div
-        # fresh carried as int32 0/1: bool planes in a fori carry fail
-        # Mosaic legalization (scf.for with i1 vector carries)
-        i0 + 1,                            # 32   fresh
-    )
-
-    def tick(t, s):
-        (cur_t, count, energy0, lt, lr, lg, rt, rr, rg,
-         rho_t, ct, clp, cg, lwt, depth, asum, nlf, de, sn, nl,
-         ptv, pr, pg, rs, cs, cslp, csg, lws, ck,
-         acc_sum, depth_sum, div, fresh_i) = s
-        fresh = fresh_i != 0
-
-        if injected:
-            z_t = z_ref[t]
-            u_dir0 = u4_ref[t, 0]
-            u_take = u4_ref[t, 1]
-            u_bias = u4_ref[t, 2]
-            u_dir = u4_ref[t, 3]
-        else:
-            z_t = _normals(d, plane)
-            u_dir0 = _uniform(pltpu.prng_random_bits(plane))
-            u_take = _uniform(pltpu.prng_random_bits(plane))
-            u_bias = _uniform(pltpu.prng_random_bits(plane))
-            u_dir = _uniform(pltpu.prng_random_bits(plane))
-        tiny = jnp.float32(1.1754944e-38)
-        u_take = jnp.maximum(u_take, tiny)
-        u_bias = jnp.maximum(u_bias, tiny)
-
-        # -- trajectory init (masked): momentum refresh at cur_theta.
-        # ct == cur_t, clp/cg == logp/grad at cur_t wherever fresh (see
-        # state-layout note), so candidate planes double as the "current
-        # point" source; cand/cand_sub value inits are skipped entirely —
-        # cand_sub is dead until the new subtree's first take (lws = -inf
-        # makes it unconditional), and cand carries over unchanged.
-        r0 = scale_mass(z_t)
-        dir0 = jnp.where(u_dir0 < 0.5, feps, -feps)
-        energy0 = w1(fresh, clp - kinetic(r0), energy0)
-        lt = wd(fresh, ct, lt)
-        lr = wd(fresh, r0, lr)
-        lg = wd(fresh, cg, lg)
-        rt = wd(fresh, ct, rt)
-        rr = wd(fresh, r0, rr)
-        rg = wd(fresh, cg, rg)
-        rho_t = wd(fresh, r0, rho_t)
-        lwt = w1(fresh, 0.0, lwt)
-        depth = w1(fresh, 0, depth)
-        asum = w1(fresh, 0.0, asum)
-        nlf = w1(fresh, 0, nlf)
-        de = w1(fresh, dir0, de)
-        sn = w1(fresh, 0, sn)
-        nl = w1(fresh, 1.0, nl)
-        ptv = wd(fresh, ct, ptv)
-        pr = wd(fresh, r0, pr)
-        pg = wd(fresh, cg, pg)
-        rs = wd(fresh, zd, rs)
-        lws = w1(fresh, -jnp.inf, lws)
-
-        # -- block-start masks (level k live when sn % 2^k == 0) ----------
-        rs_pre = rs                       # pre-leapfrog rho_sub: the
-        starts_k = []                     # block-start checkpoint value
-        for k in range(1, max_depth):
-            starts_k.append((sn & jnp.int32(2 ** k - 1)) == 0)
-
-        # -- ONE leapfrog (the only gradient work; never masked out) ------
-        r = pr + (0.5 * de)[None] * pg
-        theta = ptv + de[None] * apply_inv_mass(r)
-        lp, grad = vag(theta)
-        r = r + (0.5 * de)[None] * grad
-
-        # momentum checkpoint = the block's first IN-BLOCK (post-leapfrog)
-        # state — see nuts_fsm.py / nuts.py for the direction-asymmetry bug
-        # the pre-block boundary version causes. Both halves of the pair
-        # (post-leapfrog r, block-start rho_sub) are known here, so each
-        # level writes ONE packed plane; the pack itself is level-
-        # independent — computed ONCE per tick, not once per level (the
-        # in-loop form cost ~6x its pack arithmetic before Mosaic CSE).
-        packed = bf16_pack2(r, rs_pre)
-        ck = list(ck)
-        for k in range(1, max_depth):
-            ck[k - 1] = wd(starts_k[k - 1], packed, ck[k - 1])
-
-        delta = (lp - kinetic(r)) - energy0
-        delta = jnp.where(jnp.isnan(delta), -jnp.inf, delta)
-        diverging = delta < -jnp.float32(div_threshold)
-        asum = asum + jnp.minimum(1.0, jnp.exp(delta))
-        nlf = nlf + 1
-
-        # progressive multinomial candidate within the subtree
-        lws_new = jnp.logaddexp(lws, delta)
-        take = jnp.log(u_take) < delta - lws_new
-        cs = wd(take, theta, cs)
-        cslp = w1(take, lp, cslp)
-        csg = wd(take, grad, csg)
-        rs = rs + r
-        lws = lws_new
-
-        # block-end U-turn checks inside the subtree (levels above
-        # max_depth-1 can never complete a block — no checkpoint, no check)
-        turning_sub = b0
-        for k in range(1, max_depth):
-            ends = ((sn + 1) & jnp.int32(2 ** k - 1)) == 0
-            rck_k, rsck_k = bf16_unpack2(ck[k - 1])
-            block_rho = rs - rsck_k
-            turning_sub = turning_sub | (ends & uturn(block_rho, rck_k, r))
-
-        sub_done = (((sn + 1).astype(jnp.float32) >= nl) | turning_sub
-                    | diverging)
-
-        # ---- subtree merge into the tree (masked by sub_done) -----------
-        ok = ~turning_sub & ~diverging
-        take_tree = (jnp.log(u_bias) < lws - lwt) & ok
-        ct = wd(sub_done & take_tree, cs, ct)
-        clp = w1(sub_done & take_tree, cslp, clp)
-        cg = wd(sub_done & take_tree, csg, cg)
-        lwt = w1(sub_done & ok, jnp.logaddexp(lwt, lws), lwt)
-
-        went_right = de > 0
-        upd_end = sub_done & ok
-        rt = wd(upd_end & went_right, theta, rt)
-        rr = wd(upd_end & went_right, r, rr)
-        rg = wd(upd_end & went_right, grad, rg)
-        lt = wd(upd_end & ~went_right, theta, lt)
-        lr = wd(upd_end & ~went_right, r, lr)
-        lg = wd(upd_end & ~went_right, grad, lg)
-        rho_t = wd(upd_end, rho_t + rs, rho_t)
-
-        turning_tree = uturn(rho_t, lr, rr)
-        traj_done = sub_done & (turning_sub | diverging
-                                | (ok & turning_tree)
-                                | (depth + 1 >= max_depth))
-
-        # ---- next subtree (trajectory continues) ------------------------
-        depth_next = depth + jnp.where(sub_done & ~traj_done, 1, 0)
-        new_dir = jnp.where(u_dir < 0.5, feps, -feps)
-        start_sub = sub_done & ~traj_done
-        de = w1(start_sub, new_dir, de)
-        go_right = de > 0
-        ptv = wd(start_sub, wd(go_right, rt, lt), theta)
-        pr = wd(start_sub, wd(go_right, rr, lr), r)
-        pg = wd(start_sub, wd(go_right, rg, lg), grad)
-        sn = w1(sub_done, 0, sn + 1)
-        nl = w1(start_sub, jnp.exp2(depth_next.astype(jnp.float32)), nl)
-        rs = wd(start_sub, zd, rs)
-        lws = w1(start_sub, -jnp.inf, lws)
-
-        # ---- trajectory finish: emit sample, schedule re-init -----------
-        cur_t = wd(traj_done, ct, cur_t)
-        count = count + jnp.where(traj_done, 1, 0)
-        acc_sum = acc_sum + jnp.where(
-            traj_done, asum / jnp.maximum(nlf, 1).astype(jnp.float32), 0.0)
-        depth_sum = depth_sum + jnp.where(
-            traj_done, depth_next.astype(jnp.float32) + 1.0, 0.0)
-        div = div + jnp.where(traj_done & diverging, 1, 0)
-        fresh_next = traj_done.astype(jnp.int32)
-
-        if collect_idx is None:
-            out_ref[pl.ds(t, 1)] = cur_t[None]
-        else:
-            out_ref[pl.ds(t, 1)] = cur_t[collect_idx][None]
-        outc_ref[pl.ds(t, 1)] = count[None]
-
-        return (cur_t, count, energy0, lt, lr, lg, rt, rr,
-                rg, rho_t, ct, clp, cg, lwt, depth_next, asum, nlf, de, sn,
-                nl,
-                ptv, pr, pg, rs, cs, cslp, csg, lws, tuple(ck),
-                acc_sum, depth_sum, div, fresh_next)
-
-    s = jax.lax.fori_loop(0, num_ticks, tick, state)
-    vout_ref[...] = s[0]
-    cnt_ref[...] = s[1]
-    # stats planes: accept_sum, depth_sum, div_count, inflight alpha_sum,
-    # inflight nlf (mean_accept assembled host-side like nuts_fsm)
-    stat_ref[0] = s[29]
-    stat_ref[1] = s[30]
-    stat_ref[2] = s[31].astype(jnp.float32)
-    stat_ref[3] = s[15]
-    stat_ref[4] = s[16].astype(jnp.float32)
-
-
-def _kernel_pair(num_pairs, max_depth, eps, div_threshold, collect_idx,
-                 n_res, staged, injected, has_stream, stream_hbm, *refs):
-    """Pair-scheduled tick body: TWO leapfrogs per fori iteration with
-    subtree starts aligned to pair boundaries, so checkpoint writes run
-    only in slot 1 and the per-level U-turn ends-tests only in slot 2 —
-    the whole U-turn section (the kernel's single largest op block) runs
-    once per two leapfrogs. Semantics = inference.nuts_fsm.nuts_fsm_paired
-    pair for pair (the XLA twin; see its docstring for the alignment
-    argument); validated tick-exact in interpret mode and by the
-    bench_nuts_fused statistical gates."""
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    refs = list(refs)
-    if stream_hbm:
-        sem_ref = refs.pop()
-        scratch_ref = refs.pop()
-    # SCRATCH-RESIDENT d-plane state (round 5, VERDICT r4 item 3): the
-    # 16 f32 + (max_depth-1) int32 d-planes live in VMEM scratch refs
-    # instead of the fori carry. Measured (synthetic 12-plane probe,
-    # v5e): Mosaic compile of a many-d-plane LOOP CARRY scales
-    # superlinearly in d (d=96: ~14 s, d=192: ~52 s) while the same
-    # state as scratch refs compiles in ~1 s — and the flattened
-    # (d*8, tc) layout hypothesis recorded in round 4 measured NO
-    # improvement (rank-2 == rank-3 carries). Only the scalar planes
-    # ride in the carry.
-    CK_ref = refs.pop()
-    S_ref = refs.pop()
-    v_ref, seed_ref, res_ref, mass_ref = refs[:4]
-    refs = refs[4:]
-    data_ref = refs.pop(0) if has_stream else None
-    if stream_hbm:
-        data_ref = ("hbm", data_ref, scratch_ref, sem_ref)
-    if injected:
-        (z_ref, u7_ref,
-         out_ref, outc_ref, vout_ref, cnt_ref, stat_ref) = refs
-    else:
-        out_ref, outc_ref, vout_ref, cnt_ref, stat_ref = refs
-
-    res = [res_ref[i] for i in range(n_res)]
-
-    def vag(v):
-        return staged.plane_vag(v, res, data_ref)
-
-    if not injected:
-        pid = pl.program_id(0).astype(jnp.uint32)
-        pltpu.prng_seed(seed_ref[0],
-                        seed_ref[1] ^ (pid * jnp.uint32(0x9E3779B9)))
-
-    v0 = v_ref[...]
-    d = v0.shape[0]
-    plane = v0.shape[1:]
-    lp0, g0 = vag(v0)
-    f0 = v0[0] * 0.0
-    i0 = f0.astype(jnp.int32)
-    b0 = f0 > 1.0
-    zd = v0 * 0.0
-    izd = (v0 * 0.0).astype(jnp.int32)
-    ninf = f0 - jnp.inf
-    feps = jnp.float32(eps)
-
-    from ..utils import sqrt_mass_safe
-    inv_plane = jnp.stack([f0 + mass_ref[i] for i in range(d)])
-    mom_plane = sqrt_mass_safe(inv_plane)
-
-    def scale_mass(z):
-        return mom_plane * z
-
-    def apply_inv_mass(r):
-        return inv_plane * r
-
-    def dot_im(a, b):
-        return jnp.sum(inv_plane * a * b, axis=0)
-
-    def kinetic(r):
-        return 0.5 * dot_im(r, r)
-
-    from ..utils import bf16_pack2, bf16_unpack2
-
-    def uturn(rho, r_a, r_b):
-        return (dot_im(rho, r_a) <= 0.0) | (dot_im(rho, r_b) <= 0.0)
-
-    def w1(c, a, b):
-        return jnp.where(c, a, b)
-
-    def wd(c, a, b):
-        return jnp.where(c[None], a, b)
-
-    # scratch-plane layout (S_ref rows; cur_logp/cur_grad subsumed by the
-    # candidate planes — identical argument as _kernel)
-    CUR, LT, LR, LG, RT, RR, RG, RHO = 0, 1, 2, 3, 4, 5, 6, 7
-    CT, CG, PTV, PR, PG, RS, CS, CSG = 8, 9, 10, 11, 12, 13, 14, 15
-    for idx, val in ((CUR, v0), (LT, v0), (LR, zd), (LG, g0), (RT, v0),
-                     (RR, zd), (RG, g0), (RHO, zd), (CT, v0), (CG, g0),
-                     (PTV, v0), (PR, zd), (PG, g0), (RS, zd), (CS, v0),
-                     (CSG, g0)):
-        S_ref[idx] = val
-    for k in range(max(max_depth - 1, 0)):
-        CK_ref[k] = izd
-
-    # fori carry: SCALAR planes only (the d-planes live in S_ref/CK_ref)
-    state = (
-        i0,                                # 0  count
-        f0,                                # 1  energy0
-        lp0,                               # 2  cand logp
-        f0,                                # 3  logw_tree
-        i0,                                # 4  depth
-        f0,                                # 5  alpha_sum
-        i0,                                # 6  nlf
-        f0 + eps,                          # 7  dir_eps
-        i0,                                # 8  sub_n
-        f0 + 1.0,                          # 9  num_leaves (f32 exp2)
-        lp0,                               # 10 cand_sub logp
-        ninf,                              # 11 logw_sub
-        f0, f0, i0,                        # 12-14 accept_sum/depth_sum/div
-        i0 + 1,                            # 15 fresh
-    )
-
-    def pair(p, s):
-        (count, energy0, clp, lwt, depth, asum, nlf, de, sn, nl,
-         cslp, lws, acc_sum, depth_sum, div, fresh_i) = s
-        fresh = fresh_i != 0
-        cur_t = S_ref[CUR]
-        lt, lr, lg = S_ref[LT], S_ref[LR], S_ref[LG]
-        rt, rr, rg = S_ref[RT], S_ref[RR], S_ref[RG]
-        rho_t = S_ref[RHO]
-        ct, cg = S_ref[CT], S_ref[CG]
-        ptv, pr, pg = S_ref[PTV], S_ref[PR], S_ref[PG]
-        rs = S_ref[RS]
-        cs, csg = S_ref[CS], S_ref[CSG]
-        ck = [CK_ref[k] for k in range(max(max_depth - 1, 0))]
-
-        if injected:
-            z_t = z_ref[p]
-            u_dir0 = u7_ref[p, 0]
-            u_take1 = u7_ref[p, 1]
-            u_bias1 = u7_ref[p, 2]
-            u_dir1 = u7_ref[p, 3]
-            u_take2 = u7_ref[p, 4]
-            u_bias2 = u7_ref[p, 5]
-            u_dir2 = u7_ref[p, 6]
-        else:
-            z_t = _normals(d, plane)
-            u_dir0 = _uniform(pltpu.prng_random_bits(plane))
-            u_take1 = _uniform(pltpu.prng_random_bits(plane))
-            u_bias1 = _uniform(pltpu.prng_random_bits(plane))
-            u_dir1 = _uniform(pltpu.prng_random_bits(plane))
-            u_take2 = _uniform(pltpu.prng_random_bits(plane))
-            u_bias2 = _uniform(pltpu.prng_random_bits(plane))
-            u_dir2 = _uniform(pltpu.prng_random_bits(plane))
-        tiny = jnp.float32(1.1754944e-38)
-        u_take1 = jnp.maximum(u_take1, tiny)
-        u_bias1 = jnp.maximum(u_bias1, tiny)
-        u_take2 = jnp.maximum(u_take2, tiny)
-        u_bias2 = jnp.maximum(u_bias2, tiny)
-
-        # -- trajectory init (masked) -------------------------------------
-        r0 = scale_mass(z_t)
-        dir0 = jnp.where(u_dir0 < 0.5, feps, -feps)
-        energy0 = w1(fresh, clp - kinetic(r0), energy0)
-        lt = wd(fresh, ct, lt)
-        lr = wd(fresh, r0, lr)
-        lg = wd(fresh, cg, lg)
-        rt = wd(fresh, ct, rt)
-        rr = wd(fresh, r0, rr)
-        rg = wd(fresh, cg, rg)
-        rho_t = wd(fresh, r0, rho_t)
-        lwt = w1(fresh, 0.0, lwt)
-        depth = w1(fresh, 0, depth)
-        asum = w1(fresh, 0.0, asum)
-        nlf = w1(fresh, 0, nlf)
-        de = w1(fresh, dir0, de)
-        sn = w1(fresh, 0, sn)
-        nl = w1(fresh, 1.0, nl)
-        ptv = wd(fresh, ct, ptv)
-        pr = wd(fresh, r0, pr)
-        pg = wd(fresh, cg, pg)
-        rs = wd(fresh, zd, rs)
-        lws = w1(fresh, -jnp.inf, lws)
-
-        # ============ slot 1 (sn even for every chain) ==================
-        rs_pre = rs
-        starts_k = []
-        for k in range(1, max_depth):
-            starts_k.append((sn & jnp.int32(2 ** k - 1)) == 0)
-
-        r1 = pr + (0.5 * de)[None] * pg
-        th1 = ptv + de[None] * apply_inv_mass(r1)
-        lp1, g1 = vag(th1)
-        r1 = r1 + (0.5 * de)[None] * g1
-
-        packed = bf16_pack2(r1, rs_pre)
-        ck = list(ck)
-        for k in range(1, max_depth):
-            ck[k - 1] = wd(starts_k[k - 1], packed, ck[k - 1])
-
-        delta1 = (lp1 - kinetic(r1)) - energy0
-        delta1 = jnp.where(jnp.isnan(delta1), -jnp.inf, delta1)
-        div1 = delta1 < -jnp.float32(div_threshold)
-        asum = asum + jnp.minimum(1.0, jnp.exp(delta1))
-        nlf = nlf + 1
-        lws_1 = jnp.logaddexp(lws, delta1)
-        take1 = jnp.log(u_take1) < delta1 - lws_1
-        cs = wd(take1, th1, cs)
-        cslp = w1(take1, lp1, cslp)
-        csg = wd(take1, g1, csg)
-        rs = rs + r1
-
-        # mid-pair subtree end: 1-leapfrog first subtree or divergence
-        m1 = (nl < 1.5) | div1
-        ok1 = ~div1
-        take_tree1 = (jnp.log(u_bias1) < lws_1 - lwt) & ok1
-        ct = wd(m1 & take_tree1, cs, ct)
-        clp = w1(m1 & take_tree1, cslp, clp)
-        cg = wd(m1 & take_tree1, csg, cg)
-        lwt = w1(m1 & ok1, jnp.logaddexp(lwt, lws_1), lwt)
-        went_right = de > 0
-        upd1 = m1 & ok1
-        rt = wd(upd1 & went_right, th1, rt)
-        rr = wd(upd1 & went_right, r1, rr)
-        rg = wd(upd1 & went_right, g1, rg)
-        lt = wd(upd1 & ~went_right, th1, lt)
-        lr = wd(upd1 & ~went_right, r1, lr)
-        lg = wd(upd1 & ~went_right, g1, lg)
-        rho_t = wd(upd1, rho_t + rs, rho_t)
-        turning_tree1 = uturn(rho_t, lr, rr)
-        traj_done1 = m1 & (div1 | turning_tree1
-                           | (depth + 1 >= max_depth))
-
-        start1 = m1 & ~traj_done1
-        depth = depth + jnp.where(start1, 1, 0)
-        new_dir1 = jnp.where(u_dir1 < 0.5, feps, -feps)
-        de = w1(start1, new_dir1, de)
-        gr1 = de > 0
-        ptv = wd(start1, wd(gr1, rt, lt), th1)
-        pr = wd(start1, wd(gr1, rr, lr), r1)
-        pg = wd(start1, wd(gr1, rg, lg), g1)
-        sn = w1(m1, 0, sn + 1)
-        nl = w1(start1, jnp.exp2(depth.astype(jnp.float32)), nl)
-        rs = wd(start1, zd, rs)
-        lws = w1(start1, -jnp.inf, lws_1)
-
-        cur_t = wd(traj_done1, ct, cur_t)
-        count = count + jnp.where(traj_done1, 1, 0)
-        acc_sum = acc_sum + jnp.where(
-            traj_done1, asum / jnp.maximum(nlf, 1).astype(jnp.float32),
-            0.0)
-        depth_sum = depth_sum + jnp.where(
-            traj_done1, depth.astype(jnp.float32) + 1.0, 0.0)
-        div = div + jnp.where(traj_done1 & div1, 1, 0)
-
-        # every slot-1 subtree-ender idles slot 2 (alignment invariant)
-        idle2 = m1
-        act = ~idle2
-
-        # ============ slot 2 (masked by idle2) ==========================
-        r2 = pr + (0.5 * de)[None] * pg
-        th2 = ptv + de[None] * apply_inv_mass(r2)
-        lp2, g2 = vag(th2)
-        r2 = r2 + (0.5 * de)[None] * g2
-        delta2 = (lp2 - kinetic(r2)) - energy0
-        delta2 = jnp.where(jnp.isnan(delta2), -jnp.inf, delta2)
-        div2 = act & (delta2 < -jnp.float32(div_threshold))
-        asum = asum + jnp.where(act,
-                                jnp.minimum(1.0, jnp.exp(delta2)), 0.0)
-        nlf = nlf + jnp.where(act, 1, 0)
-        lws_2 = w1(act, jnp.logaddexp(lws, delta2), lws)
-        take2 = act & (jnp.log(u_take2) < delta2 - lws_2)
-        cs = wd(take2, th2, cs)
-        cslp = w1(take2, lp2, cslp)
-        csg = wd(take2, g2, csg)
-        rs = wd(act, rs + r2, rs)
-
-        # the pair-boundary U-turn section (sn odd for active chains)
-        turning_sub = b0
-        for k in range(1, max_depth):
-            ends = act & (((sn + 1) & jnp.int32(2 ** k - 1)) == 0)
-            rck_k, rsck_k = bf16_unpack2(ck[k - 1])
-            block_rho = rs - rsck_k
-            turning_sub = turning_sub | (ends
-                                         & uturn(block_rho, rck_k, r2))
-
-        sub_done2 = act & (((sn + 1).astype(jnp.float32) >= nl)
-                           | turning_sub | div2)
-        ok2 = ~turning_sub & ~div2
-        take_tree2 = (jnp.log(u_bias2) < lws_2 - lwt) & ok2
-        ct = wd(sub_done2 & take_tree2, cs, ct)
-        clp = w1(sub_done2 & take_tree2, cslp, clp)
-        cg = wd(sub_done2 & take_tree2, csg, cg)
-        lwt = w1(sub_done2 & ok2, jnp.logaddexp(lwt, lws_2), lwt)
-        went_right2 = de > 0
-        upd2 = sub_done2 & ok2
-        rt = wd(upd2 & went_right2, th2, rt)
-        rr = wd(upd2 & went_right2, r2, rr)
-        rg = wd(upd2 & went_right2, g2, rg)
-        lt = wd(upd2 & ~went_right2, th2, lt)
-        lr = wd(upd2 & ~went_right2, r2, lr)
-        lg = wd(upd2 & ~went_right2, g2, lg)
-        rho_t = wd(upd2, rho_t + rs, rho_t)
-        turning_tree2 = uturn(rho_t, lr, rr)
-        traj_done2 = sub_done2 & (turning_sub | div2
-                                  | (ok2 & turning_tree2)
-                                  | (depth + 1 >= max_depth))
-
-        start2 = sub_done2 & ~traj_done2
-        depth_next = depth + jnp.where(start2, 1, 0)
-        new_dir2 = jnp.where(u_dir2 < 0.5, feps, -feps)
-        de = w1(start2, new_dir2, de)
-        gr2 = de > 0
-        ptv = wd(start2, wd(gr2, rt, lt), wd(act, th2, ptv))
-        pr = wd(start2, wd(gr2, rr, lr), wd(act, r2, pr))
-        pg = wd(start2, wd(gr2, rg, lg), wd(act, g2, pg))
-        sn = w1(act, w1(sub_done2, 0, sn + 1), sn)
-        nl = w1(start2, jnp.exp2(depth_next.astype(jnp.float32)), nl)
-        rs = wd(start2, zd, rs)
-        lws = w1(start2, -jnp.inf, lws_2)
-
-        cur_t = wd(traj_done2, ct, cur_t)
-        count = count + jnp.where(traj_done2, 1, 0)
-        acc_sum = acc_sum + jnp.where(
-            traj_done2, asum / jnp.maximum(nlf, 1).astype(jnp.float32),
-            0.0)
-        depth_sum = depth_sum + jnp.where(
-            traj_done2, depth_next.astype(jnp.float32) + 1.0, 0.0)
-        div = div + jnp.where(traj_done2 & div2, 1, 0)
-        fresh_next = (traj_done1 | traj_done2).astype(jnp.int32)
-
-        if collect_idx is None:
-            out_ref[pl.ds(p, 1)] = cur_t[None]
-        else:
-            out_ref[pl.ds(p, 1)] = cur_t[collect_idx][None]
-        outc_ref[pl.ds(p, 1)] = count[None]
-
-        # write the d-plane state back to scratch
-        for idx, val in ((CUR, cur_t), (LT, lt), (LR, lr), (LG, lg),
-                         (RT, rt), (RR, rr), (RG, rg), (RHO, rho_t),
-                         (CT, ct), (CG, cg), (PTV, ptv), (PR, pr),
-                         (PG, pg), (RS, rs), (CS, cs), (CSG, csg)):
-            S_ref[idx] = val
-        for k in range(max(max_depth - 1, 0)):
-            CK_ref[k] = ck[k]
-
-        return (count, energy0, clp, lwt, depth_next, asum, nlf, de,
-                sn, nl, cslp, lws,
-                acc_sum, depth_sum, div, fresh_next)
-
-    s = jax.lax.fori_loop(0, num_pairs, pair, state)
-    vout_ref[...] = S_ref[CUR]
-    cnt_ref[...] = s[0]
-    stat_ref[0] = s[12]
-    stat_ref[1] = s[13]
-    stat_ref[2] = s[14].astype(jnp.float32)
-    stat_ref[3] = s[5]
-    stat_ref[4] = s[6].astype(jnp.float32)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "logp", "num_ticks", "eps", "max_depth", "collect_idx", "tile",
-    "divergence_threshold", "use_pallas", "interpret", "paired"))
-def nuts_chains_fused(key, logp: Callable, values0, num_ticks: int,
-                      eps: float, max_depth: int = 8,
-                      inv_mass_diag=None, collect_idx: int = 0,
-                      tile: int = _DEF_TILE,
-                      divergence_threshold: float = 1000.0,
-                      use_pallas: Optional[bool] = None,
-                      injected_rng=None, interpret: bool = False,
-                      paired: bool = False):
-    """Run ``num_ticks`` FSM-NUTS leapfrog ticks on (n_chains, d) values.
-
-    Returns ``(values (n, d), hist (num_ticks, n), hist_counts
-    (num_ticks, n) int32, counts (n,), stats)``: ``hist[t, j]`` is
-    coordinate ``collect_idx`` of chain j's CURRENT sample after tick t
-    (piecewise-constant between trajectory completions — a valid series
-    for autocorrelation ESS: plateau lengths encode the trajectory
-    costs, but it is length-biased for MOMENTS via the inspection
-    paradox); ``hist_counts[t, j]`` is the completed-trajectory count
-    after tick t, so ``hist[t]`` at ticks where the count increments
-    extracts each completed draw exactly once (unbiased); ``counts`` the
-    final completed-trajectory counts; ``stats`` a dict with
-    ``mean_accept``/``mean_depth``/``num_divergent`` per chain. ``eps`` is static; ``inv_mass_diag`` may be traced (SMEM
-    scalars). Semantics match ``inference.nuts_fsm.nuts_fsm`` tick for
-    tick; ``injected_rng=(z (ticks, n, d), u_dir0, u_take, u_bias, u_dir
-    each (ticks, n))`` replaces the on-core PRNG for exact comparison, and
-    ``interpret=True`` runs the kernel under the Pallas TPU interpreter
-    (how CI exercises it on CPU).
-
-    ``paired=True`` runs the pair-scheduled kernel (:func:`_kernel_pair`
-    — two leapfrogs per fori tick, subtree starts aligned to pair
-    boundaries, the U-turn section once per pair; XLA twin
-    ``inference.nuts_fsm.nuts_fsm_paired``). Identical per-trajectory
-    NUTS semantics on a different schedule: ~35% fewer VPU ops per
-    leapfrog for a few percent idle slots. The streams then have
-    ``ceil(num_ticks / 2)`` PAIR entries (counts still increase by at
-    most 1 per entry, so ``extract_completed_draws`` works unchanged);
-    ``injected_rng`` takes the 8-stream pair layout ``(z (pairs, n, d),
-    u_dir0, u_take1, u_bias1, u_dir1, u_take2, u_bias2, u_dir2 each
-    (pairs, n))``."""
-    values0 = jnp.asarray(values0, jnp.float32)
-    n, d = values0.shape
-    if use_pallas is None:
-        from .resample import on_tpu
-        use_pallas = on_tpu()
-        if use_pallas:
-            # measured crossover (round 5, v5e, robust-t n=10k @ 8192
-            # chains): for STREAMED likelihoods the in-kernel point loop
-            # runs ~15.7 ns/point/1024-chains while the XLA twin's fully
-            # batched (chains x points) evaluation runs ~8.5 — the
-            # kernel's edge (VMEM-resident bookkeeping) is swamped once
-            # the data loop dominates the tick. Auto-dispatch therefore
-            # prefers the XLA path for stream models WHEN its batched
-            # intermediates fit comfortably in HBM; past that (the n=1M
-            # regime, which crashed the TPU worker under XLA batching)
-            # the HBM-streaming kernel is the only runner.
-            try:
-                from .scalarize import stage_scalarized
-                st_probe = stage_scalarized(logp, d)
-                if st_probe.stream_data is not None:
-                    pts = int(st_probe.stream_data.shape[1])
-                    xla_bytes = n * pts * 16
-                    if pts >= 4096 and xla_bytes < (4 << 30):
-                        use_pallas = False
-            except Exception:
-                pass
-    if interpret:
-        use_pallas = True
-    if injected_rng is not None and not use_pallas:
-        raise ValueError("injected_rng requires the Pallas path "
-                         "(use_pallas=True or interpret=True)")
-    inv_mass = (jnp.ones((d,), jnp.float32) if inv_mass_diag is None
-                else jnp.asarray(inv_mass_diag, jnp.float32))
-    num_pairs = (num_ticks + 1) // 2
-
-    if not use_pallas:
-        vag = jax.value_and_grad(logp)
-        keys = jax.random.split(key, n)
-        ci = "all" if collect_idx is None else collect_idx
-        if paired:
-            from ..inference.nuts_fsm import nuts_fsm_paired
-            res, (hist, hist_cnt) = jax.vmap(
-                lambda kk, t: nuts_fsm_paired(
-                    kk, vag, t, eps, num_pairs, max_depth=max_depth,
-                    inv_mass_diag=inv_mass,
-                    divergence_threshold=divergence_threshold,
-                    collect_idx=ci, ckpt_bf16=True))(keys, values0)
-        else:
-            from ..inference.nuts_fsm import nuts_fsm
-            res, (hist, hist_cnt) = jax.vmap(
-                lambda kk, t: nuts_fsm(kk, vag, t, eps, num_ticks,
-                                       max_depth=max_depth,
-                                       inv_mass_diag=inv_mass,
-                                       num_sample_slots=8,
-                                       divergence_threshold=divergence_threshold,
-                                       collect_idx=ci,
-                                       ckpt_bf16=True))(keys, values0)
-        stats = dict(mean_accept=res.mean_accept,
-                     mean_depth=res.mean_depth,
-                     num_divergent=res.num_divergent)
-        return (res.theta, jnp.moveaxis(hist, 0, 1), hist_cnt.T,
-                res.counts, stats)
-
-    from .hmc_fused import VMEM_LIMIT as _VL, check_vmem_envelope
-    check_vmem_envelope("nuts_paired" if paired else "nuts", d, tile,
-                        max_depth=max_depth,
-                        # +1: the completed-count stream rides next to the
-                        # sample history
-                        hist_planes=(d if collect_idx is None else 1) + 1,
-                        # paired mode emits one history row per PAIR; its
-                        # scratch state is bounded by the 128M PHYSICAL
-                        # VMEM (the real d=576 abort), not the scoped cap
-                        num_ticks=num_pairs if paired else num_ticks,
-                        budget_bytes=(124 << 20) if paired else _VL)
-
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    planes, n_pad = _to_planes(values0, tile)
-    tc = tile // SUB
-    cols = n_pad // SUB
-    grid = cols // tc
-
-    from .scalarize import stage_scalarized
-    staged = stage_scalarized(logp, d)
-    res_consts = staged.res_consts
-    has_stream = staged.stream_data is not None
-
-    seed = jax.random.key_data(key).astype(jnp.uint32).reshape(-1)[:2]
-
-    in_specs = [pl.BlockSpec((d, SUB, tc), lambda i: (0, 0, i),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM)]
-    inputs = [planes, seed, res_consts, inv_mass]
-    scratch_shapes = []
-    if has_stream:
-        if staged.stream_hbm:
-            # oversized dataset: stays in HBM, streamed through an SMEM
-            # scratch tile by in-kernel DMA (scalarize._stream_loop_hbm)
-            in_specs.append(pl.BlockSpec(memory_space=pltpu.ANY))
-            scratch_shapes = [
-                pltpu.SMEM(staged.stream_scratch_shape, jnp.float32),
-                pltpu.SemaphoreType.DMA]
-        else:
-            # the dataset rides in SMEM next to the residual scalars
-            in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
-        inputs.append(staged.stream_data)
-    steps = num_pairs if paired else num_ticks   # fori length = stream len
-    n_u = 7 if paired else 4
-    if injected_rng is not None:
-        z_all, *us = injected_rng
-        if len(us) != n_u:
-            raise ValueError(
-                f"injected_rng needs {n_u} uniform streams for "
-                f"paired={paired}, got {len(us)}")
-
-        def to_plane_steps(x):
-            x = jnp.asarray(x, jnp.float32)
-            pad = jnp.concatenate(
-                [x, jnp.broadcast_to(x[:, :1], (steps, n_pad - n)
-                                     + x.shape[2:])], axis=1) \
-                if n_pad != n else x
-            if pad.ndim == 3:
-                return jnp.moveaxis(pad, 2, 1).reshape(steps, d, SUB,
-                                                       cols)
-            return pad.reshape(steps, SUB, cols)
-
-        z_p = to_plane_steps(z_all)
-        u4 = jnp.stack([to_plane_steps(u) for u in us], axis=1)
-        in_specs += [pl.BlockSpec((steps, d, SUB, tc),
-                                  lambda i: (0, 0, 0, i),
-                                  memory_space=pltpu.VMEM),
-                     pl.BlockSpec((steps, n_u, SUB, tc),
-                                  lambda i: (0, 0, 0, i),
-                                  memory_space=pltpu.VMEM)]
-        inputs += [z_p, u4]
-
-    if collect_idx is None:
-        hist_shape = jax.ShapeDtypeStruct((steps, d, SUB, cols),
-                                          jnp.float32)
-        hist_spec = pl.BlockSpec((steps, d, SUB, tc),
-                                 lambda i: (0, 0, 0, i),
-                                 memory_space=pltpu.VMEM)
-    else:
-        hist_shape = jax.ShapeDtypeStruct((steps, SUB, cols),
-                                          jnp.float32)
-        hist_spec = pl.BlockSpec((steps, SUB, tc), lambda i: (0, 0, i),
-                                 memory_space=pltpu.VMEM)
-
-    body = _kernel_pair if paired else _kernel
-    if paired:
-        # scratch-resident d-plane state (see _kernel_pair): 16 f32 +
-        # (max_depth-1) int32 checkpoint planes, OUT of the fori carry —
-        # collapses the carry-driven Mosaic compile blowup
-        scratch_shapes = [
-            pltpu.VMEM((16, d, SUB, tc), jnp.float32),
-            pltpu.VMEM((max(max_depth - 1, 1), d, SUB, tc), jnp.int32),
-        ] + scratch_shapes
-    out, outc, vout, cnt, stat = pl.pallas_call(
-        functools.partial(body, steps, int(max_depth), float(eps),
-                          float(divergence_threshold),
-                          None if collect_idx is None else int(collect_idx),
-                          res_consts.shape[0], staged,
-                          injected_rng is not None, has_stream,
-                          bool(has_stream and staged.stream_hbm)),
-        grid=(grid,),
-        # the input state planes donate their HBM buffer to the
-        # final-state output
-        input_output_aliases={0: 2},
-        scratch_shapes=scratch_shapes,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=VMEM_LIMIT),
-        out_shape=(hist_shape,
-                   jax.ShapeDtypeStruct((steps, SUB, cols), jnp.int32),
-                   jax.ShapeDtypeStruct((d, SUB, cols), jnp.float32),
-                   jax.ShapeDtypeStruct((SUB, cols), jnp.int32),
-                   jax.ShapeDtypeStruct((5, SUB, cols), jnp.float32)),
-        in_specs=in_specs,
-        out_specs=(hist_spec,
-                   pl.BlockSpec((steps, SUB, tc), lambda i: (0, 0, i),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((d, SUB, tc), lambda i: (0, 0, i),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((SUB, tc), lambda i: (0, i),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((5, SUB, tc), lambda i: (0, 0, i),
-                                memory_space=pltpu.VMEM)),
-        interpret=(pltpu.InterpretParams() if interpret else False),
-    )(*inputs)
-
-    values = _from_planes(vout, n)
-    if collect_idx is None:
-        hist = jnp.moveaxis(out.reshape(steps, d, n_pad), 1, 2)[:, :n, :]
-    else:
-        hist = out.reshape(steps, n_pad)[:, :n]
-    hist_cnt = outc.reshape(steps, n_pad)[:, :n]
-    counts = cnt.reshape(-1)[:n]
-    acc_sum = stat[0].reshape(-1)[:n]
-    depth_sum = stat[1].reshape(-1)[:n]
-    divs = stat[2].reshape(-1)[:n]
-    alpha_infl = stat[3].reshape(-1)[:n]
-    nlf_infl = stat[4].reshape(-1)[:n]
-    cntf = jnp.maximum(counts, 1).astype(jnp.float32)
-    inflight = alpha_infl / jnp.maximum(nlf_infl, 1.0)
-    mean_accept = jnp.where(counts > 0, acc_sum / cntf, inflight)
-    stats = dict(mean_accept=mean_accept, mean_depth=depth_sum / cntf,
-                 num_divergent=divs.astype(jnp.int32))
-    return values, hist, hist_cnt, counts, stats

@@ -1,16 +1,14 @@
-"""Scalarization: stage a ``logp: (d,) -> scalar`` into full-tile plane ops
-for Pallas TPU kernels.
+"""Scalarization: stage a ``logp: (d,) -> scalar`` into per-coordinate
+plane ops for the fused kernels (``ops/hmc_fused.py``).
 
-Why this exists (the two failure modes it solves are both measured —
-benchmarks/RESULTS.md):
+Why this exists:
 
-1. ``jax.vmap`` puts batch axes LEADING, so under a double vmap over a
-   (8, tile) chain block every small intermediate of the model's logp —
-   a stacked coefficient vector, a Gram quadratic form — becomes e.g.
-   ``(tile, 8, 3, 3)`` with the TINY axes minor. On TPU the minor two dims
-   are the hardware tile: every elementwise op then runs at 9/1024 VPU
-   utilization, and Mosaic rejects the middle-axis reductions outright
-   (``vector.multi_reduction`` "Unsupported output implicit dimension").
+1. A kernel holds one chain per lane and each coordinate as a lane vector
+   (a "plane"). ``jax.vmap`` over a chain block would instead turn every
+   small intermediate of the model's logp — a stacked coefficient vector,
+   a Gram quadratic form — into a block with the tiny model axes as extra
+   dimensions, which the kernel language neither lays out well nor, for
+   most reductions and matrix products at those shapes, lowers at all.
 2. Data-dependent subgraphs (the ``normal_linear`` Gram build, observed
    choice maps) must not be re-executed inside the kernel's leapfrog loop.
 
@@ -26,20 +24,20 @@ The pass:
 - **Scalarize the residual**: every remaining value is a ``ScalarArray`` —
   its original shape plus a flat list of per-element "scalars", where each
   scalar is either a Python constant, a staged residual constant, or a
-  full ``(8, tile/8)`` PLANE. Array primitives become Python-level loops
-  over elements; every emitted JAX op is an elementwise op on full tiles.
+  PLANE (one value per chain). Array primitives become Python-level loops
+  over elements; every emitted JAX op is an elementwise op on planes.
   A residual `dot_general` becomes an explicit sum of products; a
   `reduce_sum` becomes a Python sum — no in-kernel reductions at all.
 
 Supported residual primitives are the scalar-PPL set (arithmetic,
 transcendentals, comparisons, select, stack/concat/reshape/slice/transpose/
 broadcast, reductions, dot_general, convert_element_type, erf & friends via
-inlining) plus, since round 2, structured pieces that unroll statically:
+inlining) plus structured pieces that unroll statically:
 
 - ``scan``: unrolled over its (static) length — the body jaxpr is inlined
   and evaluated per step at the ScalarArray level, so collapsed
   state-space likelihoods (Kalman-filter scans) stage into the fused
-  kernels; the observed sequence arrives as staged residual constants.
+  kernel; the observed sequence arrives as staged residual constants.
 - ``cond``: every branch is evaluated (they are element-level expressions
   after scalarization) and combined with a branchless where-chain on the
   traced index — the standard masked-universe trick.
@@ -50,7 +48,7 @@ inlining) plus, since round 2, structured pieces that unroll statically:
 ``while_loop`` (data-dependent trip count) remains unsupported — callers
 fall back to the XLA path.
 
-No reference analogue: this is TPU-native staging machinery.
+No reference analogue: this is the fused kernel's staging machinery.
 """
 
 from __future__ import annotations
@@ -92,9 +90,9 @@ class StreamArray:
     it would emit n x ops plane equations. A StreamArray instead holds a
     tiny expression DAG over (data leaves, x-dependent plane scalars);
     the DAG is only materialized when a ``reduce_sum`` over the data
-    axis appears, as an IN-KERNEL fori loop streaming the data from
-    SMEM (``_emit_stream_reduction``) — the dataset never enters the
-    unrolled program and never leaves scalar memory.
+    axis appears, as an IN-KERNEL fori loop streaming the data table
+    (:func:`_stream_loop`) — the dataset never enters the unrolled
+    program.
 
     ``node``: ('leaf', data_row_index) | ('plane', plane_value)
             | ('const', python_scalar) | (op_name, params, (args...)).
@@ -221,12 +219,12 @@ def _apply_pending(name, params, args: Sequence[ScalarArray]):
             raise NotImplementedError(
                 "stream staging: a deferred data-sum re-entering per-point "
                 "arithmetic is not supported; use the XLA path "
-                "(use_pallas=False)")
+                "instead")
         if a.size != 1:
             raise NotImplementedError(
                 "stream staging: a deferred data-sum combined with a "
                 "non-scalar is not supported; use the XLA path "
-                "(use_pallas=False)")
+                "instead")
     vals = [_as_affine(a.elems[0]) for a in args]
 
     def known(v):
@@ -251,7 +249,7 @@ def _apply_pending(name, params, args: Sequence[ScalarArray]):
             raise NotImplementedError(
                 "stream staging: a deferred data-sum may only be scaled "
                 "by a known constant (the additive-log-likelihood "
-                "restriction); use the XLA path (use_pallas=False)")
+                "restriction); use the XLA path instead")
         c = y.base
         out = _Affine(x.base * c, [(cc * c, i) for cc, i in x.terms])
     elif name == "div":
@@ -259,7 +257,7 @@ def _apply_pending(name, params, args: Sequence[ScalarArray]):
         if y.terms or not known(y):
             raise NotImplementedError(
                 "stream staging: a deferred data-sum may only be divided "
-                "by a known constant; use the XLA path (use_pallas=False)")
+                "by a known constant; use the XLA path instead")
         c = y.base
         out = _Affine(x.base / c, [(cc / c, i) for cc, i in x.terms])
     elif name == "convert_element_type":
@@ -267,7 +265,7 @@ def _apply_pending(name, params, args: Sequence[ScalarArray]):
         if not jnp.issubdtype(params["new_dtype"], jnp.floating):
             raise NotImplementedError(
                 "stream staging: non-float conversion of a deferred "
-                "data-sum; use the XLA path (use_pallas=False)")
+                "data-sum; use the XLA path instead")
         out = x
     elif name in ("reshape", "squeeze", "expand_dims", "broadcast_in_dim"):
         x, = vals
@@ -275,13 +273,13 @@ def _apply_pending(name, params, args: Sequence[ScalarArray]):
         if math.prod(shape) not in (1,):
             raise NotImplementedError(
                 "stream staging: broadcasting a deferred data-sum; use "
-                "the XLA path (use_pallas=False)")
+                "the XLA path instead")
         out = x
     else:
         raise NotImplementedError(
             f"stream staging: primitive '{name}' applied to a deferred "
             "data-sum (only additive combination is supported); use the "
-            "XLA path (use_pallas=False)")
+            "XLA path instead")
     return [ScalarArray((), [out])]
 
 
@@ -304,13 +302,13 @@ def _stream_eval(name, params, *vals):
 def _apply_stream(name, params, args):
     """Elementwise ops involving StreamArrays build DAG nodes lazily —
     the dataset axis is never unrolled; a reduce_sum over it defers to an
-    in-kernel SMEM streaming loop (registered in _STREAM_CTX)."""
+    in-kernel streaming loop (registered in _STREAM_CTX)."""
     lengths = [a.length for a in args if isinstance(a, StreamArray)]
     n = lengths[0]
     if any(l != n for l in lengths):
         raise NotImplementedError(
             f"stream staging: mixed stream lengths {lengths}; use the "
-            "XLA path (use_pallas=False)")
+            "XLA path instead")
 
     def as_node(a):
         if isinstance(a, StreamArray):
@@ -320,13 +318,13 @@ def _apply_stream(name, params, args):
                 raise NotImplementedError(
                     "stream staging: a non-scalar unrolled value combined "
                     "with a stream (per-point) value; use the XLA path "
-                    "(use_pallas=False)")
+                    "instead")
             e = a.elems[0]
             if _is_pending(e):
                 raise NotImplementedError(
                     "stream staging: a deferred data-sum re-entering "
                     "per-point arithmetic; use the XLA path "
-                    "(use_pallas=False)")
+                    "instead")
             from jax.core import Tracer
             if isinstance(e, Tracer) or isinstance(e, jnp.ndarray):
                 return ("plane", e)
@@ -346,7 +344,7 @@ def _apply_stream(name, params, args):
         if not jnp.issubdtype(params["new_dtype"], jnp.floating):
             raise NotImplementedError(
                 "stream staging: non-float stream conversion; use the "
-                "XLA path (use_pallas=False)")
+                "XLA path instead")
         return [StreamArray(n, (name, dict(params),
                                 (as_node(args[0]),)))]
     if name in ("reshape", "squeeze", "expand_dims"):
@@ -355,7 +353,7 @@ def _apply_stream(name, params, args):
         if shape is not None and math.prod(shape) != a.length:
             raise NotImplementedError(
                 "stream staging: size-changing reshape of a stream "
-                "value; use the XLA path (use_pallas=False)")
+                "value; use the XLA path instead")
         return [a]
     if name == "broadcast_in_dim":
         a = args[0]
@@ -363,7 +361,7 @@ def _apply_stream(name, params, args):
         if math.prod(shape) != a.length:
             raise NotImplementedError(
                 "stream staging: size-changing broadcast of a stream "
-                "value; use the XLA path (use_pallas=False)")
+                "value; use the XLA path instead")
         return [a]
     if name in ("reduce_sum",):
         a = args[0]
@@ -373,7 +371,7 @@ def _apply_stream(name, params, args):
         return [ScalarArray((), [_Pending(len(_STREAM_CTX[-1]) - 1)])]
     raise NotImplementedError(
         f"stream staging: primitive '{name}' on a per-point stream value "
-        "is not supported; use the XLA path (use_pallas=False)")
+        "is not supported; use the XLA path instead")
 
 
 def _eval_node_now(nd):
@@ -438,45 +436,42 @@ def _canon_stream(term: StreamArray):
     return cnode, planes, rows, term.length
 
 
-# HBM-tiled streaming: points per DMA tile. The SMEM scratch is
-# rows x STREAM_TILE f32 (16 KB/row at 4096) — small next to the 512 KB
-# SMEM budget, large enough that the DMA (sub-us at ~600 GB/s) vanishes
-# under the compute of 4096 points x full-tile plane ops.
-STREAM_TILE = 4096
-# Points evaluated per loop iteration as ONE (P, *plane) op block (round
-# 5): the per-point scalar loop measured 140 ns/point at 1024 chains —
-# dominated by loop/SMEM-read/vjp overhead, not the ~4 ns of VPU work per
-# point — so batching P points into rank-3 plane ops amortizes the
-# overhead P-fold while the total VPU work is unchanged. Data scalars
-# enter as (P, 1, 1) stacks (rank-2+ throughout — rank-1 intermediates
-# abort Mosaic), pad points are masked inside the block so their
-# cotangents are exactly zero.
+# Points evaluated per loop iteration as ONE (P, *plane) op block: the
+# block's data arrive as one (P,) vector load per data row, broadcast
+# against the chain planes, so the loop overhead (index arithmetic, the
+# per-point vjp bookkeeping) is paid once per P points. Pad points are
+# masked inside the block so their cotangents are exactly zero.
 STREAM_BLOCK = 16
 
 
-def _block_contrib(cnode, rows, read_local, base_local, base_global, ss,
-                   length, zero):
-    """Contribution of STREAM_BLOCK consecutive points, evaluated as one
-    set of (P, *plane) ops and summed over the block axis; points at or
-    past ``length`` (edge-padded) contribute exactly zero."""
+def _loader(data):
+    """``load(row, first, size) -> (size,)`` over a stream-data table: an
+    array (read with a dynamic slice) or a loader already (the kernels
+    pass one that reads their table in device memory)."""
+    if callable(data):
+        return data
+    table = jnp.asarray(data)
+
+    def load(row, first, size):
+        return jax.lax.dynamic_slice_in_dim(table[row], first, size)
+
+    return load
+
+
+def _block_contrib(cnode, rows, load, base, ss, length, zero):
+    """Contribution of STREAM_BLOCK consecutive points starting at
+    ``base``, evaluated as one set of (P, *plane) ops and summed over the
+    block axis; points at or past ``length`` (edge-padded) contribute
+    exactly zero."""
     P = STREAM_BLOCK
-    # Mosaic supports scalar -> plane broadcast but NOT (P, 1, 1) ->
-    # (P, 8, tc) ("broadcast in both sublanes and lanes"), so each data
-    # scalar is broadcast to a full plane first and the block is a stack
-    # of planes. The extra P adds per row are VPU noise next to the DAG.
-    dvals = {}
-    for r in rows:
-        dvals[r] = jnp.stack([read_local(r, base_local + u) + zero
-                              for u in range(P)])
-    fb = base_global.astype(jnp.float32)
-    dvals["__i__"] = jnp.stack([fb + jnp.float32(u) + zero
-                                for u in range(P)])
-    # multiplicative 0/1 mask as a full (P, *plane) stack; pad values are
-    # EDGE data (finite), so mask-by-multiply is NaN-safe and its vjp
-    # zeroes pad cotangents exactly
-    valid = jnp.stack([
-        jnp.where(base_global + u < length, 1.0, 0.0).astype(zero.dtype)
-        + zero for u in range(P)])
+    col = (P,) + (1,) * zero.ndim
+    dvals = {r: jnp.reshape(load(r, base, P), col) + zero for r in rows}
+    idx = base + jax.lax.iota(jnp.int32, P)
+    dvals["__i__"] = jnp.reshape(idx.astype(zero.dtype), col) + zero
+    # multiplicative 0/1 mask; pad values are EDGE data (finite), so
+    # mask-by-multiply is NaN-safe and its vjp zeroes pad cotangents
+    valid = jnp.reshape(jnp.where(idx < length, 1.0, 0.0).astype(zero.dtype),
+                        col)
 
     def ev(nd):
         kind = nd[0]
@@ -494,20 +489,28 @@ def _block_contrib(cnode, rows, read_local, base_local, base_global, ss,
     return jnp.sum(out * valid, axis=0)
 
 
-def _blocked_accumulate(cnode, s_vals, rows, length, read_local,
-                        blocks_fn, plane_zero, want_grad):
-    """Shared accumulator driver for the SMEM and HBM stream loops.
+def _stream_loop(cnode, s_vals, rows, length, data, plane_zero,
+                 want_grad=True):
+    """The data loop: stream the table in STREAM_BLOCK-point blocks,
+    evaluating the per-point DAG as plane ops and accumulating the sum AND
+    its partials w.r.t. each plane input (per-block jax.vjp of the PURE
+    block function — data are read before the vjp, so gradient memory is
+    O(#inputs) planes, not O(n)).
 
-    The VALUE accumulator is KAHAN-COMPENSATED (round 5): a plain
-    sequential f32 sum over n/16 block contributions carries
-    ~sqrt(n_blocks) * eps * |partial sums| of absolute noise — at n = 1M
-    with |logp| ~ 1e6 that is O(10), which drowns the O(1) MH energy
-    differences entirely (measured: acceptance collapsed to ~0.2 on the
-    n = 1M robust-t run however well eps was adapted). Compensation cuts
-    it to ~eps * |sum|. The GRADIENT accumulators are compensated too:
-    near the posterior mode the gradient is a cancellation of
-    |sum|-magnitude contributions, and its rounding noise biases the
-    leapfrog drift."""
+    The VALUE accumulator is KAHAN-COMPENSATED: a plain sequential f32 sum
+    over n/16 block contributions carries ~sqrt(n_blocks) * eps * |partial
+    sums| of absolute noise — at n = 1M with |logp| ~ 1e6 that is O(10),
+    which drowns the O(1) MH energy differences. Compensation cuts it to
+    ~eps * |sum|. The GRADIENT accumulators are compensated too: near the
+    posterior mode the gradient is a cancellation of |sum|-magnitude
+    contributions, and its rounding noise biases the leapfrog drift."""
+    if not s_vals:
+        raise NotImplementedError(
+            "stream staging: a data-sum with no x-dependent part should "
+            "have been partial-evaluated away")
+    load = _loader(data)
+    P = STREAM_BLOCK
+    n_blocks = (length + P - 1) // P
     zero = plane_zero
 
     def _kadd(acc, comp, val):
@@ -515,16 +518,16 @@ def _blocked_accumulate(cnode, s_vals, rows, length, read_local,
         t = acc + y
         return t, (t - acc) - y
 
-    def one_block(base_global, base_local, accs):
+    def body(b, accs):
+        base = b * P
         if want_grad:
             val, pullp = jax.vjp(
-                lambda *ss: _block_contrib(cnode, rows, read_local,
-                                           base_local, base_global, ss,
+                lambda *ss: _block_contrib(cnode, rows, load, base, ss,
                                            length, zero), *s_vals)
             gs = pullp(jnp.ones_like(val))
         else:
-            val = _block_contrib(cnode, rows, read_local, base_local,
-                                 base_global, s_vals, length, zero)
+            val = _block_contrib(cnode, rows, load, base, s_vals, length,
+                                 zero)
             gs = ()
         out = []
         for i, v in enumerate((val,) + tuple(gs)):
@@ -532,89 +535,16 @@ def _blocked_accumulate(cnode, s_vals, rows, length, read_local,
             out += [a, c]
         return tuple(out)
 
-    n_acc = 1 + (len(s_vals) if want_grad else 0)
+    # the VALUE accumulator is a full plane (anchored by plane_zero); each
+    # GRADIENT accumulator matches ITS input's shape — inputs may be
+    # scalars (staged residual constants in the per-point expression)
     zeros = [zero, zero]
     if want_grad:
         for sv in s_vals:
             zeros += [sv * 0.0, sv * 0.0]
-    accs = blocks_fn(one_block, tuple(zeros))
+    accs = jax.lax.fori_loop(0, n_blocks, body, tuple(zeros))
+    n_acc = 1 + (len(s_vals) if want_grad else 0)
     return accs[0], tuple(accs[2 * i] for i in range(1, n_acc))
-
-
-def _stream_loop_hbm(cnode, s_vals, rows, length, hs, plane_zero,
-                     unroll=32, want_grad=True):
-    """HBM-tiled variant of :func:`_stream_loop`: the data table lives in
-    HBM; tiles of STREAM_TILE points are DMA'd into an SMEM scratch
-    buffer inside the loop, then evaluated in STREAM_BLOCK-point plane
-    blocks. Padded points (table padded to whole tiles with edge values)
-    are masked out of the sum AND the vjp — the mask sits INSIDE the
-    block function, so cotangents for pad points are exactly zero and
-    flow through finite values only."""
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _, hbm_ref, scratch_ref, sem_ref = hs
-    n_rows, T = scratch_ref.shape
-    used_tiles = (length + T - 1) // T
-    P = STREAM_BLOCK
-
-    def read_local(r, j):
-        return scratch_ref[r, j]
-
-    def blocks_fn(one_block, accs):
-        def tile_body(t, accs):
-            copy = pltpu.make_async_copy(
-                hbm_ref.at[:, pl.ds(t * T, T)], scratch_ref, sem_ref)
-            copy.start()
-            copy.wait()
-
-            def body(b, accs):
-                return one_block(t * T + b * P, b * P, accs)
-
-            return jax.lax.fori_loop(0, T // P, body, accs)
-
-        return jax.lax.fori_loop(0, used_tiles, tile_body, accs)
-
-    return _blocked_accumulate(cnode, s_vals, rows, length, read_local,
-                               blocks_fn, plane_zero, want_grad)
-
-
-def _stream_loop(cnode, s_vals, rows, length, data_ref, plane_zero,
-                 unroll=32, want_grad=True):
-    """The in-kernel data loop: stream the dataset from SMEM (dynamic
-    scalar reads probed at 140 ns/point/1024-chains on v5e —
-    benchmarks/probe_data_stream.py; ~7.5x the XLA rate on the same
-    chip), evaluating the per-point DAG as full-tile plane ops and
-    accumulating the sum AND its partials w.r.t. each plane input
-    (per-point jax.vjp of the PURE point function — data scalars are
-    read before the vjp, so no ref effects and no scan-residual blowup:
-    gradient memory is O(#inputs) planes, not O(n))."""
-    if not s_vals:
-        raise NotImplementedError(
-            "stream staging: a data-sum with no x-dependent part should "
-            "have been partial-evaluated away")
-    if isinstance(data_ref, tuple) and data_ref and data_ref[0] == "hbm":
-        return _stream_loop_hbm(cnode, s_vals, rows, length, data_ref,
-                                plane_zero, unroll, want_grad)
-    # the VALUE accumulator is always a full plane (anchored by
-    # plane_zero); each GRADIENT accumulator matches ITS input's shape —
-    # inputs may be scalars (staged residual constants entering the
-    # per-point expression), not just chain planes. Evaluation runs in
-    # STREAM_BLOCK-point plane blocks (see _block_contrib) — the table is
-    # padded to a whole number of blocks at staging time.
-    P = STREAM_BLOCK
-    n_blocks = (length + P - 1) // P
-
-    def read_local(r, j):
-        return data_ref[r, j]
-
-    def blocks_fn(one_block, accs):
-        def body(b, accs):
-            return one_block(b * P, b * P, accs)
-        return jax.lax.fori_loop(0, n_blocks, body, accs)
-
-    return _blocked_accumulate(cnode, s_vals, rows, length, read_local,
-                               blocks_fn, plane_zero, want_grad)
 
 
 def _inline_jaxpr(jaxpr, consts) -> Tuple[list, dict, list, list]:
@@ -668,33 +598,23 @@ def _inline_jaxpr(jaxpr, consts) -> Tuple[list, dict, list, list]:
 class StagedLogp:
     """Result of :func:`stage_scalarized`.
 
-    - ``plane_fn(planes, res, data_ref=None)``: value-only plane logp.
-    - ``plane_vag(planes, res, data_ref=None)``: (logp, grad) with the
-      stream terms' gradients hand-assembled (never differentiates
-      through the data loop) — what the fused kernels call.
-    - ``res_consts``: f32 vector of staged residual scalars (SMEM).
-    - ``stream_data``: f32 (rows, n_max) data table for the in-kernel
-      streaming loops (SMEM), or None when the model fully collapses.
+    - ``plane_fn(planes, res, data=None)``: value-only plane logp.
+    - ``plane_vag(planes, res, data=None)``: (logp, grad) with the stream
+      terms' gradients hand-assembled (never differentiates through the
+      data loop) — what the fused kernel calls.
+    - ``res_consts``: f32 vector of staged residual scalars.
+    - ``stream_data``: f32 (rows, n_max) data table for the streaming
+      loops, or None when the model fully collapses. ``data`` above is
+      this table, or a ``load(row, first, size)`` function reading it.
 
-    Unpacks as the legacy 2-tuple ``plane_fn, res_consts = staged``.
+    Unpacks as the 2-tuple ``plane_fn, res_consts = staged``.
     """
 
-    def __init__(self, plane_fn, res_consts, plane_vag, stream_data,
-                 stream_hbm=False):
+    def __init__(self, plane_fn, res_consts, plane_vag, stream_data):
         self.plane_fn = plane_fn
         self.res_consts = res_consts
         self.plane_vag = plane_vag
         self.stream_data = stream_data
-        # True: the table exceeds the SMEM budget and must stream from
-        # HBM through an SMEM scratch tile — the kernels bind it with
-        # memory_space=ANY plus (rows, STREAM_TILE) SMEM scratch + a DMA
-        # semaphore, and pass ("hbm", hbm_ref, scratch_ref, sem_ref) as
-        # data_ref (see _stream_loop_hbm)
-        self.stream_hbm = stream_hbm
-
-    @property
-    def stream_scratch_shape(self):
-        return (int(self.stream_data.shape[0]), STREAM_TILE)
 
     def __iter__(self):
         return iter((self.plane_fn, self.res_consts))
@@ -703,21 +623,16 @@ class StagedLogp:
 def stage_scalarized(logp: Callable, d: int,
                      max_residual_scalars: int = 1024,
                      stream_threshold: int = 2048,
-                     max_stream_bytes: int = 512 * 1024,
                      allow_stream: bool = True) -> StagedLogp:
     """Stage ``logp`` for plane evaluation; see :class:`StagedLogp`.
 
-    Small x-dependent residuals unroll into per-element full-tile ops
-    (sufficient-statistic likelihoods — the round-1 design). Since round
-    4, a NON-collapsible per-point likelihood no longer fails the
-    residual cap: large known float arrays (>= ``stream_threshold``
-    elements) become SMEM-resident data rows, per-point arithmetic on
-    them builds a lazy :class:`StreamArray` DAG, and the final
-    ``reduce_sum`` runs as an in-kernel streaming loop
-    (:func:`_stream_loop`) with hand-assembled gradients. Data totalling
-    more than ``max_stream_bytes`` (512 KB measured OK on v5e SMEM)
-    streams from HBM in STREAM_TILE-point DMA tiles instead (round 5,
-    VERDICT r4 item 4) — the dataset cap becomes HBM-sized.
+    Small x-dependent residuals unroll into per-element plane ops
+    (sufficient-statistic likelihoods). A NON-collapsible per-point
+    likelihood stages too: large known float arrays (>=
+    ``stream_threshold`` elements) become rows of a data table, per-point
+    arithmetic on them builds a lazy :class:`StreamArray` DAG, and the
+    final ``reduce_sum`` runs as an in-kernel streaming loop
+    (:func:`_stream_loop`) with hand-assembled gradients.
     """
     closed = jax.make_jaxpr(lambda x: logp(x))(jnp.zeros((d,), jnp.float32))
     eqns, const_env, invars, outvars = _inline_jaxpr(closed.jaxpr,
@@ -776,7 +691,7 @@ def stage_scalarized(logp: Callable, d: int,
             f"scalarized residual needs {total} staged scalars (> "
             f"{max_residual_scalars}): the x-dependent part of this logp "
             "touches large arrays (non-sufficient-statistic likelihood?); "
-            "use the XLA path (use_pallas=False)")
+            "use the XLA path instead")
     for v in res_vars:
         if not jnp.issubdtype(v.aval.dtype, jnp.floating):
             raise ValueError(
@@ -792,51 +707,27 @@ def stage_scalarized(logp: Callable, d: int,
         offsets[v] = off
         off += s
 
-    # ---- stream data table: pad rows to a common length --------------
-    # Up to ``max_stream_bytes`` the table rides wholly in SMEM (512 KB
-    # measured OK on v5e). Larger datasets switch to HBM-TILED streaming
-    # (VERDICT r4 item 4): the table stays in HBM and the kernels DMA it
-    # through an SMEM scratch tile of STREAM_TILE points inside the data
-    # loop (_stream_loop_hbm) — the dataset cap becomes HBM-sized.
+    # ---- stream data table: rows padded to a common length, a whole
+    # number of evaluation blocks, with each row's EDGE value (finite,
+    # in-domain): padded points are masked out of the sums, but they
+    # still flow through the per-point DAG, and a 0.0 pad can NaN it
+    # (log, /0), which would then poison the masked vjp (0 * NaN) ----
     stream_data = None
     stream_lengths = []
-    stream_hbm = False
     if stream_vars:
         lens = [int(np.prod(v.aval.shape)) for v in stream_vars]
-        n_max = max(lens)
-        total_bytes = 4 * len(lens) * n_max
-        stream_hbm = total_bytes > max_stream_bytes
-        if stream_hbm:
-            if 4 * len(lens) * STREAM_TILE > max_stream_bytes:
-                raise ValueError(
-                    f"stream staging: {len(lens)} data rows x "
-                    f"{STREAM_TILE}-point HBM tiles exceed the "
-                    f"{max_stream_bytes // 1024} KB SMEM scratch budget; "
-                    "use the XLA path (use_pallas=False)")
-            # pad to a whole number of DMA tiles; pad with each row's
-            # EDGE value (finite, in-domain) — padded points are masked
-            # out of the sums, but they still flow through the per-point
-            # DAG, and a 0.0 pad can NaN it (log/"/0"), which would then
-            # poison the masked vjp (0 * NaN)
-            n_max = ((n_max + STREAM_TILE - 1)
-                     // STREAM_TILE) * STREAM_TILE
-        else:
-            # SMEM mode: pad to a whole number of evaluation blocks
-            # (same edge-value + in-block masking contract)
-            n_max = ((n_max + STREAM_BLOCK - 1)
-                     // STREAM_BLOCK) * STREAM_BLOCK
+        n_max = -(-max(lens) // STREAM_BLOCK) * STREAM_BLOCK
         rows = [jnp.pad(jnp.ravel(known[v]).astype(jnp.float32),
                         (0, n_max - ln), mode="edge")
                 for v, ln in zip(stream_vars, lens)]
         stream_data = jnp.stack(rows)
         stream_lengths = lens
 
-    def _eval(planes, res, data_ref):
-        if stream_vars and data_ref is None:
+    def _eval(planes, res, data):
+        if stream_vars and data is None:
             raise ValueError(
                 "this staged logp streams a dataset: pass the "
-                "StagedLogp.stream_data table as data_ref (the kernels "
-                "wire it through SMEM automatically)")
+                "StagedLogp.stream_data table (or a loader) as data")
         env = {}
         env[x_var] = ScalarArray((d,), [planes[i] for i in range(d)])
         for v in res_vars:
@@ -863,30 +754,30 @@ def stage_scalarized(logp: Callable, d: int,
         return elem, [], ctx
 
     # ---- the scalarized plane function (value only) -------------------
-    def plane_fn(planes, res, data_ref=None):
-        """planes: (d, *plane); res: staged scalars; data_ref: the
-        stream-data table (SMEM ref in-kernel, or a plain array)."""
-        base, aterms, ctx = _eval(planes, res, data_ref)
+    def plane_fn(planes, res, data=None):
+        """planes: (d, *plane); res: staged scalars; data: the
+        stream-data table or a loader (see :class:`StagedLogp`)."""
+        base, aterms, ctx = _eval(planes, res, data)
         val = base
         pz = planes[0] * 0.0
         for coeff, idx in aterms:
             cnode, s_vals, rows, length = _canon_stream(ctx[idx])
-            v, _ = _stream_loop(cnode, s_vals, rows, length, data_ref,
+            v, _ = _stream_loop(cnode, s_vals, rows, length, data,
                                 pz, want_grad=False)
             val = val + coeff * v
         return val
 
     # ---- value-and-grad with hand-assembled stream gradients ----------
-    def plane_vag(planes, res, data_ref=None):
+    def plane_vag(planes, res, data=None):
         """logp = base(v) + sum_j c_j * S_j(s_j(v)) with S_j the data
         sums: grad = vjp of (base, s_1..s_J) with cotangents
         (1, c_1*g_1, ..., c_J*g_J) where g_j = dS_j/ds_j comes from the
         forward data loop — exact, and never differentiates through the
-        fori (whose scan-vjp residuals would be O(n) VMEM planes)."""
+        fori (whose scan-vjp residuals would be O(n) planes)."""
         cell = {}
 
         def f(v):
-            base, aterms, ctx = _eval(v, res, data_ref)
+            base, aterms, ctx = _eval(v, res, data)
             canon = [_canon_stream(ctx[idx]) for _, idx in aterms]
             cell["aterms"] = aterms
             cell["canon"] = canon
@@ -899,14 +790,13 @@ def stage_scalarized(logp: Callable, d: int,
         for (coeff, _), (cnode, _, rows, length), s_vals in zip(
                 cell["aterms"], cell["canon"], s_groups):
             v, gs = _stream_loop(cnode, list(s_vals), rows, length,
-                                 data_ref, pz, want_grad=True)
+                                 data, pz, want_grad=True)
             val = val + coeff * v
             g_groups.append(tuple(coeff * g for g in gs))
         grad = pull((jnp.ones_like(base), tuple(g_groups)))[0]
         return val, grad
 
-    return StagedLogp(plane_fn, res_consts, plane_vag, stream_data,
-                      stream_hbm=stream_hbm)
+    return StagedLogp(plane_fn, res_consts, plane_vag, stream_data)
 
 
 def _read_var(v, env) -> ScalarArray:
@@ -1260,4 +1150,4 @@ def _apply(name: str, params: dict, args: Sequence[ScalarArray]):
                             [a.elems[i] for i in mapping.reshape(-1)])]
     raise NotImplementedError(
         f"scalarize: primitive '{name}' not supported; use the XLA path "
-        "(use_pallas=False)")
+        "instead")

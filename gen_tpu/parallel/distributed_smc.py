@@ -1,15 +1,15 @@
 """Distributed genealogy SMC: particles sharded over a device mesh with
-explicit ICI collectives for resampling.
+explicit collectives for resampling.
 
 The reference has no distributed runtime (SURVEY.md §5.8); this is the
-TPU-native design for SURVEY.md §7.3 hard-part #3 ("distributed resampling
-that is deterministic and cheap over ICI"). The key observation is the one
+Design for SURVEY.md §7.3 hard-part #3 ("distributed resampling
+that is deterministic and cheap over the interconnect"). The key observation is the one
 behind :func:`gen_tpu.inference.smc.smc_genealogy`: resampling only needs to
 permute the O(N · state_dim) carried state plus an ancestry row — per-step
 kernel traces stay PUT on the device that produced them, and coherent
 trajectories are reconstructed once at the end from the ancestry.
 
-Collective pattern per step (all riding ICI, nothing touches the host):
+Collective pattern per step (all riding the interconnect, nothing touches the host):
 
 1. weight normalization — ``pmax`` + ``psum`` logsumexp over the particle
    axis (the sharded analogue of inference/inference.jl:3-13),
@@ -41,7 +41,7 @@ Weight/log-ML bookkeeping is identical to the single-chip
   together — so this mixing is free of any dynamic routing and keeps
   island weights from drifting apart.
 
-Per-step ICI traffic: all_gather mode moves (n_dev-1)/n_dev · N ·
+Per-step interconnect traffic: all_gather mode moves (n_dev-1)/n_dev · N ·
 state_dim elements onto every device plus the (N,) weight gather; ring
 mode moves n_local/2 · state_dim point-to-point and nothing else. The
 price is locally-stratified (slightly higher-variance) resampling;

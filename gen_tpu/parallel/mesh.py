@@ -1,17 +1,17 @@
 """Device-mesh helpers.
 
 The reference has no distributed runtime at all (SURVEY.md §5.8): every
-multi-chip concern here is new TPU-native design. The parallel axes of a
+multi-chip concern here is new Design. The parallel axes of a
 probabilistic-programming workload are:
 
 * ``chains`` — independent MCMC chains (embarrassingly parallel; data
   parallelism's analogue),
 * ``particles`` — SMC particles (independent except for resampling and
-  log-ML normalization, which become ``psum``/gather collectives over ICI),
+  log-ML normalization, which become ``psum``/gather collectives over the interconnect),
 * ``data`` — minibatch shards in BBVI/train (gradient ``psum``).
 
 We lay chains/particles over the mesh with ``jax.sharding.NamedSharding``
-and let XLA insert the collectives (logsumexp/ESS reductions ride ICI).
+and let XLA insert the collectives (logsumexp/ESS reductions ride the interconnect).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Single-controller JAX spans hosts once ``jax.distributed.initialize`` has
 run on every process; after that, every sharded entry point in
 gen_tpu.parallel works unchanged — the mesh simply contains devices from
 all hosts, chains/particles shard across the full slice, and XLA routes
-the logsumexp/resampling/gradient collectives over ICI within a host and
+the logsumexp/resampling/gradient collectives over the interconnect within a host and
 DCN across hosts.
 
 Exercised for real (round 3): tests/test_multihost.py spawns TWO OS
@@ -13,8 +13,8 @@ processes, each with two virtual CPU devices, joins them through
 distributed-SMC weight-normalization collective (pmax/psum logsumexp) and
 an all_gather across the cross-process (DCN) axis — actual Gloo
 collectives between controllers, verified against the host reference.
-On a v5e-16+ pod slice the same code paths run over DCN/ICI unchanged
-(BASELINE.md's scaling report points). The virtual-mesh tests
+On a multi-host GPU cluster the same code paths run over the
+interconnect unchanged. The virtual-mesh tests
 (tests/test_parallel.py) pin the single-controller semantics; the
 driver's dryrun_multichip compiles the same programs over an N-device
 mesh."""
@@ -31,9 +31,10 @@ from jax.sharding import Mesh
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> None:
-    """Call once per process before any jax computation on a pod slice.
-    With TPU metadata available (GKE/QR), the no-argument form
-    auto-discovers the topology."""
+    """Call once per process before any jax computation on a multi-host
+    cluster. The no-argument form works only where the environment
+    describes the cluster to JAX; otherwise pass the coordinator address,
+    process count and process id."""
     if coordinator_address is None:
         jax.distributed.initialize()
     else:
@@ -49,12 +50,12 @@ def slice_mesh(axis: str = "chains") -> Mesh:
 
 def hierarchical_mesh(ici_axis: str = "particles",
                       dcn_axis: str = "replicas") -> Mesh:
-    """2-D mesh: intra-host devices on the fast ICI axis (particle
+    """2-D mesh: intra-host devices on the fast intra-host axis (particle
     resampling collectives), hosts on the DCN axis (independent replicas /
     chain groups — communication-free except final reductions).
 
     Layout rationale (SURVEY.md §5.8): resampling needs an all-gather-class
-    collective over the particle axis every few steps — keep it on ICI;
+    collective over the particle axis every few steps — keep it within a host;
     chain/replica parallelism is embarrassingly parallel — put it across
     hosts where bandwidth is scarce."""
     n_local = jax.local_device_count()

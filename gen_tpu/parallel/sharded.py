@@ -4,13 +4,14 @@ Design (SURVEY.md §5.8, §7.1): the per-chain/per-particle computation is the
 same vmapped program as single-chip; sharding annotations on the batch axis
 make XLA partition it across devices, and the cross-particle reductions
 (logsumexp weight normalization, ESS, log-ML, resampling CDF, VI gradient
-means) lower to ``all-reduce``/``all-gather`` collectives over ICI. No
+means) lower to ``all-reduce``/``all-gather`` collectives over the interconnect. No
 explicit psum calls are needed in the common path — the sharding propagation
 inserts them — which keeps these functions identical in semantics to their
 single-chip counterparts in gen_tpu.inference."""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import jax
@@ -157,23 +158,29 @@ def sharded_vi_step(key, model, model_args, observations, var_model,
     return step(keys, bdyn)
 
 
+@functools.partial(jax.jit, static_argnames=(
+    "logp", "n_steps", "mesh", "axis", "L", "eps", "eps_jitter",
+    "collect_idx", "interpret"))
 def sharded_hmc_chains_fused(key, logp, values0, n_steps: int, mesh: Mesh,
                              axis: str = "chains", L: int = 10,
                              eps: float = 0.1, eps_jitter: float = 0.2,
                              collect_idx=0, inv_mass_diag=None,
-                             use_pallas=None):
-    """The fused Pallas HMC sampler (ops/hmc_fused.py) sharded over a mesh:
+                             interpret: bool = False):
+    """The fused HMC sampler (ops/hmc_fused.py) sharded over a mesh:
     chains are independent, so each device runs the whole kernel on its
     local chain shard with a device-folded key — zero collectives, linear
-    weak scaling by construction. Off-TPU the XLA fallback runs per shard
-    (that is how the CPU-mesh dryrun validates this path).
+    weak scaling by construction. Where the kernel runs is the one backend
+    decision (:mod:`gen_tpu.ops.backend`): the kernel on GPUs, the XLA
+    sampler per shard on the CPU (how the CPU-mesh dryrun validates this
+    path).
 
     values0: (n_chains, d) with n_chains divisible by the mesh axis size.
     ``inv_mass_diag``: optional (d,) inverse-mass diagonal (e.g. the ChEES
     warmup's adapted mass) — replicated state, forwarded to every device's
-    kernel. Returns the same (values, collected, accept_counts) as
-    :func:`gen_tpu.ops.hmc_fused.hmc_chains_fused`, sharded on the chain
-    axis."""
+    kernel. ``interpret`` runs the kernel in Pallas interpret mode (the
+    CPU tests of this path). Returns the same (values, collected,
+    accept_counts) as :func:`gen_tpu.ops.hmc_fused.hmc_chains_fused`,
+    sharded on the chain axis."""
     from jax import shard_map
     from ..ops.hmc_fused import hmc_chains_fused
 
@@ -191,28 +198,31 @@ def sharded_hmc_chains_fused(key, logp, values0, n_steps: int, mesh: Mesh,
         return hmc_chains_fused(k, logp, vals, n_steps=n_steps, L=L,
                                 eps=eps, eps_jitter=eps_jitter,
                                 collect_idx=collect_idx,
-                                inv_mass_diag=inv_m,
-                                use_pallas=use_pallas)
+                                inv_mass_diag=inv_m, interpret=interpret)
 
     coll_spec = P(None, axis) if collect_idx is not None \
         else P(None, axis, None)
+    # check_vma off: a pallas_call's outputs carry no varying-axes type,
+    # which shard_map's check requires
     fn = shard_map(local, mesh=mesh,
                    in_specs=(P(axis), P(), P()),
-                   out_specs=(P(axis), coll_spec, P(axis)))
-    return jax.jit(fn)(values0, jax.random.key_data(key), inv_mass)
+                   out_specs=(P(axis), coll_spec, P(axis)), check_vma=False)
+    return fn(values0, jax.random.key_data(key), inv_mass)
 
 
+@functools.partial(jax.jit, static_argnames=(
+    "logp", "num_ticks", "mesh", "axis", "eps", "max_depth", "collect_idx"))
 def sharded_nuts_chains_fused(key, logp, values0, num_ticks: int, mesh: Mesh,
                               axis: str = "chains", eps: float = 0.1,
                               max_depth: int = 8, collect_idx=0,
-                              inv_mass_diag=None, use_pallas=None,
-                              paired: bool = True):
-    """The fused FSM-NUTS kernel (ops/nuts_fused.py) sharded over a mesh:
+                              inv_mass_diag=None):
+    """The many-chain FSM-NUTS engine (ops/nuts_fused.py) sharded over a mesh:
     same zero-collective chain-parallel structure as
     :func:`sharded_hmc_chains_fused` — each device runs the full tick loop
     on its local chain shard with a device-folded key. Returns the same
     ``(values, hist, hist_counts, counts, stats)`` tuple, sharded on the
-    chain axis (stats values per chain)."""
+    chain axis (stats values per chain); jitted like
+    :func:`sharded_hmc_chains_fused`."""
     from jax import shard_map
     from ..ops.nuts_fused import nuts_chains_fused
 
@@ -230,8 +240,7 @@ def sharded_nuts_chains_fused(key, logp, values0, num_ticks: int, mesh: Mesh,
         vout, hist, hcnt, cnt, stats = nuts_chains_fused(
             k, logp, vals, num_ticks=num_ticks, eps=eps,
             max_depth=max_depth, inv_mass_diag=inv_m,
-            collect_idx=collect_idx, use_pallas=use_pallas,
-            paired=paired)
+            collect_idx=collect_idx)
         return vout, hist, hcnt, cnt, (stats["mean_accept"],
                                        stats["mean_depth"],
                                        stats["num_divergent"])
@@ -242,7 +251,7 @@ def sharded_nuts_chains_fused(key, logp, values0, num_ticks: int, mesh: Mesh,
                    in_specs=(P(axis), P(), P()),
                    out_specs=(P(axis), hist_spec, P(None, axis), P(axis),
                               (P(axis), P(axis), P(axis))))
-    vout, hist, hcnt, cnt, (ma, md, nd) = jax.jit(fn)(
+    vout, hist, hcnt, cnt, (ma, md, nd) = fn(
         values0, jax.random.key_data(key), inv_mass)
     return vout, hist, hcnt, cnt, dict(mean_accept=ma, mean_depth=md,
                                        num_divergent=nd)

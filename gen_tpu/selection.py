@@ -1,6 +1,6 @@
 """Selections: sets of hierarchical addresses.
 
-TPU-native analogue of Gen.jl's selection types
+array-native analogue of Gen.jl's selection types
 (/root/reference/src/address.jl:54-370). Selections are static metadata (they
 never contain traced values) — under ``jit`` a selection is part of the cache
 key, so each (model, selection) pair compiles once, mirroring Gen's

@@ -4,7 +4,7 @@ Reference: /root/reference/src/static_ir/dag.jl (node types + builder,
 213 LoC) and src/dsl/static.jl. The reference's static IR exists to
 metaprogram specialized Julia code per model (trace structs, unrolled
 simulate/generate, forward/backward-marking incremental update,
-source-to-source AD). In the TPU rebuild those jobs belong to XLA: the DAG
+source-to-source AD). In the JAX rebuild those jobs belong to XLA: the DAG
 *interprets* onto the same handler machinery as ``@gen`` functions and
 ``jax.jit`` stages it into straight-line compiled code, with XLA's
 DCE/CSE playing the role of the reference's marking passes

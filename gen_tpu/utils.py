@@ -87,7 +87,7 @@ def sqrt_mass_safe(inv_mass):
     infinite mass (the coordinate is frozen for Gibbs-within-HMC/NUTS
     blocks or per-chain conditioning); its momentum draw is zero and every
     other momentum use is inv_mass-weighted, so it never moves. Works on
-    arrays and (SMEM) scalars — the ONE definition every engine and
+    arrays and (in-kernel) scalars — the ONE definition every engine and
     kernel shares (divergence here would silently change which
     coordinates count as frozen)."""
     import jax.numpy as jnp
@@ -95,41 +95,18 @@ def sqrt_mass_safe(inv_mass):
                      1.0 / jnp.sqrt(jnp.maximum(inv_mass, 1e-30)), 0.0)
 
 
-def bf16_round(x):
-    """Round f32 to the nearest bf16 value (round-to-nearest-even),
-    returned as f32 — implemented with the EXACT bit arithmetic the fused
-    kernels' checkpoint packing uses (:func:`bf16_pack2`), so an XLA
-    reference that rounds with this function matches the kernel bit for
-    bit. (Matches ``x.astype(bfloat16).astype(float32)`` for all finite
-    values; an all-ones-mantissa NaN can carry into the sign bit — the
-    same benign artifact in both implementations, only reachable on
-    already-diverged trajectories.)"""
+def use_compile_cache() -> str:
+    """Keep JAX's persistent compilation cache in one fixed place and
+    return it. Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already
+    uses that directory and nothing else is set; otherwise the cache is
+    ``<checkout>/.jax_cache``. Called by the programs' mains (never at
+    import), so a library user's own cache setting is left alone."""
+    import os
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
     import jax
-    u = jax.lax.bitcast_convert_type(jnp.asarray(x, jnp.float32),
-                                     jnp.uint32)
-    r = (u + 0x7FFF + ((u >> 16) & 1)) & np.uint32(0xFFFF0000)
-    return jax.lax.bitcast_convert_type(r, jnp.float32)
-
-
-def bf16_pack2(a, b):
-    """Pack two f32 arrays as bf16x2 into one int32 array (a in the high
-    half, b in the low half), halving the VMEM cost of values that only
-    feed low-precision consumers (the fused NUTS kernels' U-turn
-    checkpoints). Round-trip = :func:`bf16_round` exactly."""
-    import jax
-    ua = jax.lax.bitcast_convert_type(jnp.asarray(a, jnp.float32),
-                                      jnp.uint32)
-    ub = jax.lax.bitcast_convert_type(jnp.asarray(b, jnp.float32),
-                                      jnp.uint32)
-    hi = (ua + 0x7FFF + ((ua >> 16) & 1)) & np.uint32(0xFFFF0000)
-    lo = ((ub + 0x7FFF + ((ub >> 16) & 1)) & np.uint32(0xFFFF0000)) >> 16
-    return jax.lax.bitcast_convert_type(hi | lo, jnp.int32)
-
-
-def bf16_unpack2(p):
-    """Inverse of :func:`bf16_pack2`: int32 -> (a, b) f32 arrays."""
-    import jax
-    u = jax.lax.bitcast_convert_type(p, jnp.uint32)
-    a = jax.lax.bitcast_convert_type(u & np.uint32(0xFFFF0000), jnp.float32)
-    b = jax.lax.bitcast_convert_type(u << 16, jnp.float32)
-    return a, b
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -6,6 +6,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import gen_tpu as gt
 from gen_tpu import choicemap, gen, init_param
@@ -63,7 +64,7 @@ def test_checkpoint_structure_mismatch(tmp_path):
 
 def test_systematic_resample_jnp():
     lw = jnp.log(jnp.array([0.1, 0.2, 0.3, 0.4]))
-    parents = systematic_resample(lw, 0.5, use_pallas=False)
+    parents = systematic_resample(lw, 0.5)
     assert parents.shape == (4,)
     # heavier particles get more offspring on average
     counts = np.bincount(np.asarray(parents), minlength=4)
@@ -72,7 +73,7 @@ def test_systematic_resample_jnp():
     total = np.zeros(4)
     for s in range(200):
         u = float(jax.random.uniform(jax.random.fold_in(KEY, s)))
-        p = systematic_resample(lw, u, use_pallas=False)
+        p = systematic_resample(lw, u)
         total += np.bincount(np.asarray(p), minlength=4)
     np.testing.assert_allclose(total / total.sum(), [0.1, 0.2, 0.3, 0.4],
                                atol=0.02)
@@ -120,3 +121,42 @@ def test_sorted_multinomial_distribution():
     bw = (reps * n * w).reshape(100, -1).sum(axis=1)
     z = np.abs(bc - bw) / np.sqrt(bw)
     assert z.max() < 4.5, z.max()
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 40000])
+def test_resampling_formulations_agree(n):
+    """The three exact systematic formulations (searchsorted, sort rank
+    merge, scatter-add counting) and the dispatcher give the same parents."""
+    from gen_tpu.ops.resample import (_counting_systematic, _jnp_systematic,
+                                      _sorted_systematic)
+    lw = jax.random.normal(jax.random.PRNGKey(n), (n,)) * 1.5
+    for u in (0.0, 0.41, 0.999):
+        a = np.asarray(_jnp_systematic(lw, u))
+        np.testing.assert_array_equal(np.asarray(_sorted_systematic(lw, u)), a)
+        np.testing.assert_array_equal(np.asarray(_counting_systematic(lw, u)),
+                                      a)
+        np.testing.assert_array_equal(np.asarray(systematic_resample(lw, u)),
+                                      a)
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_rule(monkeypatch, tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR, when set, is used as it is and nothing
+    else is set; otherwise the cache is <checkout>/.jax_cache."""
+    import os
+    from gen_tpu.utils import use_compile_cache
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+            assert use_compile_cache() == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            root = os.path.dirname(os.path.dirname(os.path.abspath(
+                __file__)))
+            want = os.path.join(root, ".jax_cache")
+            assert use_compile_cache() == want
+            assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

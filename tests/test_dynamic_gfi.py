@@ -212,7 +212,7 @@ def test_splice_inline():
 
 
 def test_vectorized_choice_at_one_address():
-    """An address may hold an array of iid draws — the TPU-friendly pattern."""
+    """An address may hold an array of iid draws — the accelerator-friendly pattern."""
     @gen
     def vec_model():
         x = gt.normal(jnp.zeros(5), 1.0) @ "x"

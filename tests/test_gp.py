@@ -1,5 +1,5 @@
 """GP model family: log marginal likelihood equals the dense MVN logpdf,
-the posterior predictive matches the conditional-Gaussian formula, the MXU
+the posterior predictive matches the conditional-Gaussian formula, the matrix units
 distance formulation is exact, hyperparameter gradients pass finite
 differences, and collapsed-GP hyperparameter inference recovers truth."""
 

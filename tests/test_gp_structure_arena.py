@@ -224,7 +224,7 @@ def test_airline_real_data_loader():
 
 def test_direct_engine_matches_enumerated_oracle():
     """The round-5 DIRECT engine (no carried covariance planes, per-chain
-    replace sites, full bottom-up recompute — the TPU production path for
+    replace sites, full bottom-up recompute — the recompute path for
     gp_structure) is exact at depth 1: TV vs the enumerated 36-structure
     oracle."""
     import gp_structure as eager

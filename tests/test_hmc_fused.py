@@ -1,8 +1,9 @@
-"""Fused Pallas HMC (ops/hmc_fused.py): layout plumbing, XLA-fallback
-posterior recovery, scalarization equivalence, and — via the Pallas TPU
-interpreter with injected (host-side) randomness — EXACT kernel-vs-reference
-comparison on CPU, so CI exercises the real kernel logic. On-core-PRNG
-statistics remain TPU-only (benchmarks/bench_verify.py)."""
+"""Fused HMC kernel (ops/hmc_fused.py): layout plumbing, XLA-path
+posterior recovery, scalarization equivalence, the in-kernel Threefry
+generator, the backend decision, and — through Pallas' interpret mode with
+injected randomness — EXACT kernel-vs-reference comparison on the CPU, so
+the tests exercise the real kernel logic. Statistics of the compiled
+kernel on the card are the ``gpu``-marked tests and ``chip_smoke.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -12,19 +13,19 @@ import pytest
 import gen_tpu as gt
 from gen_tpu import choicemap, gen, select
 from gen_tpu.inference.target import FlatTarget
-from gen_tpu.ops.hmc_fused import hmc_chains_fused, _to_planes, _from_planes
+from gen_tpu.ops.hmc_fused import hmc_chains_fused, _pad_lanes
 
 KEY = jax.random.PRNGKey(0)
 
 
 def test_plane_layout_roundtrip():
     v = jnp.arange(5 * 3, dtype=jnp.float32).reshape(5, 3)
-    planes, n_pad = _to_planes(v, 16)
-    assert planes.shape == (3, 8, 2) and n_pad == 16
-    np.testing.assert_allclose(_from_planes(planes, 5), v)
-    # padding rows are copies of chain 0 (finite logp guaranteed)
-    flat = planes.reshape(3, -1).T
-    np.testing.assert_allclose(flat[5:], jnp.broadcast_to(v[0], (11, 3)))
+    planes = _pad_lanes(v.T, 16, 1)
+    assert planes.shape == (3, 16)
+    np.testing.assert_allclose(planes[:, :5].T, v)
+    # padding lanes are copies of chain 0 (finite logp guaranteed)
+    np.testing.assert_allclose(planes[:, 5:].T,
+                               jnp.broadcast_to(v[0], (11, 3)))
 
 
 def test_fallback_gaussian_exactness():
@@ -34,7 +35,7 @@ def test_fallback_gaussian_exactness():
     vals0 = jax.random.normal(KEY, (64, 2)) * 3.0
     vals, coll, accs = hmc_chains_fused(
         jax.random.PRNGKey(1), logp, vals0, n_steps=500, L=5, eps=0.5,
-        collect_idx=1, use_pallas=False)
+        collect_idx=1)
     assert vals.shape == (64, 2)
     assert coll.shape == (500, 64)
     assert accs.shape == (64,)
@@ -47,7 +48,7 @@ def test_fallback_gaussian_exactness():
 def test_fallback_matches_flat_target_model():
     """The fused entry point accepts FlatTarget.logp of a real model and
     recovers the exact conjugate posterior (fallback path; the kernel path
-    runs the same staged logp on TPU)."""
+    runs the same staged logp on the GPU)."""
     n = 40
     sigma = 0.5
     rng = np.random.default_rng(0)
@@ -74,7 +75,7 @@ def test_fallback_matches_flat_target_model():
         jax.random.normal(KEY, (128, 2)))
     vals, coll, accs = hmc_chains_fused(
         jax.random.PRNGKey(2), target.logp, jnp.asarray(vals0),
-        n_steps=400, L=8, eps=0.05, use_pallas=False)
+        n_steps=400, L=8, eps=0.05)
     paths = [p for p, _ in one.get_choices().filter(sel).leaf_items()]
     i_s, i_i = paths.index(("slope",)), paths.index(("intercept",))
     vv = np.asarray(vals)
@@ -86,16 +87,14 @@ def test_fallback_matches_flat_target_model():
     np.testing.assert_allclose(sd, np.sqrt(np.diag(Sig)), rtol=0.3)
 
 
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="pallas TPU kernel needs real TPU")
-def test_pallas_kernel_gaussian_exactness():
+@pytest.mark.gpu
+def test_pallas_kernel_gaussian_exactness(gpu):
     def logp(x):
         return -0.5 * jnp.sum(x * x)
 
     vals0 = jax.random.normal(KEY, (4096, 2)) * 2.0
     vals, coll, accs = hmc_chains_fused(
-        jax.random.PRNGKey(1), logp, vals0, n_steps=400, L=5, eps=0.5,
-        use_pallas=True)
+        jax.random.PRNGKey(1), logp, vals0, n_steps=400, L=5, eps=0.5)
     s = np.asarray(coll)[100:]
     assert abs(s.mean()) < 0.02
     assert abs(s.std() - 1.0) < 0.02
@@ -146,12 +145,11 @@ def test_scalarize_matches_logp_and_grad():
 
 
 def test_scalarize_streams_data_dependent_residual():
-    """A likelihood whose x-dependent part touches the raw data STREAMS
-    since round 4 (VERDICT r3 item 2): the dataset becomes an SMEM data
-    table, the per-point arithmetic a lazy DAG evaluated by an in-kernel
-    loop, and plane_vag assembles exact gradients without differentiating
-    through the loop. With streaming disabled the round-3 refusal (clear
-    advice, XLA path) still holds."""
+    """A likelihood whose x-dependent part touches the raw data STREAMS:
+    the dataset becomes a data table, the per-point arithmetic a lazy DAG
+    evaluated by an in-kernel loop, and plane_vag assembles exact
+    gradients without differentiating through the loop. With streaming
+    disabled staging refuses with clear advice (XLA path)."""
     from gen_tpu.ops.scalarize import stage_scalarized
     data = jnp.asarray(np.random.default_rng(0).standard_normal(5000),
                        jnp.float32)
@@ -164,8 +162,8 @@ def test_scalarize_streams_data_dependent_residual():
 
     staged = stage_scalarized(logp, 2)
     assert staged.stream_data is not None
-    # round 5: the table pads to a whole number of STREAM_BLOCK-point
-    # evaluation blocks (edge values, masked out of the sums)
+    # the table pads to a whole number of STREAM_BLOCK-point evaluation
+    # blocks (edge values, masked out of the sums)
     from gen_tpu.ops.scalarize import STREAM_BLOCK
     assert staged.stream_data.shape[0] == 1
     assert staged.stream_data.shape[1] >= 5000
@@ -213,7 +211,7 @@ def test_fallback_mass_matrix():
     vals0 = jax.random.normal(KEY, (128, 2)) * sds
     vals, coll, accs = hmc_chains_fused(
         jax.random.PRNGKey(3), logp, vals0, n_steps=400, L=8, eps=0.7,
-        collect_idx=None, inv_mass_diag=sds ** 2, use_pallas=False)
+        collect_idx=None, inv_mass_diag=sds ** 2)
     s = np.asarray(coll)[100:]
     assert float(np.mean(np.asarray(accs))) / 400 > 0.6
     np.testing.assert_allclose(s[..., 0].std(), 1.0, rtol=0.1)
@@ -265,11 +263,11 @@ def _injected_rng(key, n_steps, n, d, eps, jitter):
 
 
 def test_interpret_kernel_matches_reference_exactly():
-    """The ACTUAL Pallas kernel (TPU interpreter on CPU) with injected
+    """The ACTUAL kernel (Pallas interpret mode on the CPU) with injected
     randomness must match the plain-XLA reference step for step — leapfrog
     arithmetic, diagonal mass, MH accept, layout, collection. x64 is
-    disabled locally: the kernel is an f32 program (as on TPU), and the
-    suite-wide x64 default would promote staged literals to f64."""
+    disabled locally: the kernel is an f32 program, and the suite-wide
+    x64 default would promote staged literals to f64."""
     with jax.enable_x64(False):
         _run_interpret_gaussian_case()
 
@@ -347,7 +345,7 @@ def _run_interpret_scalarized_case():
 def _kalman_logp(T=6, seed=0):
     """Collapsed AR(2)-style LGSSM posterior logp: priors on (phi, log_q,
     log_r), likelihood = exact Kalman marginal via a lax.scan of matmuls +
-    cholesky + cho_solve — the round-2 scalarize extension (unrolled scan /
+    cholesky + cho_solve — the scalarize extension (unrolled scan /
     cholesky / triangular_solve / static gather)."""
     from gen_tpu.models.lgssm import LGSSMParams, kalman_filter
     rng = np.random.default_rng(seed)
@@ -393,15 +391,15 @@ def test_scalarize_scan_kalman_exact():
 
 
 def test_interpret_kernel_kalman_scan_model():
-    """The ACTUAL fused HMC kernel on a scan-based (Kalman) logp via the
-    Pallas interpreter, exact against the plain-XLA reference."""
+    """The ACTUAL fused HMC kernel on a scan-based (Kalman) logp in
+    Pallas interpret mode, exact against the plain-XLA reference."""
     with jax.enable_x64(False):
         _run_interpret_kalman_case()
 
 
 def _run_interpret_kalman_case():
     # tiny budget: interpret mode executes each of the unrolled Kalman
-    # plane ops through the TPU interpreter, so op count is the cost
+    # plane ops through the interpreter, so op count is the cost
     logp = _kalman_logp(T=3)
     n, d, n_steps, L = 256, 3, 3, 2
     vals0 = 0.2 * jax.random.normal(KEY, (n, d))
@@ -418,108 +416,10 @@ def _run_interpret_kalman_case():
     assert np.mean(match) > 0.99, np.mean(match)
 
 
-def test_vmem_envelope_estimator():
-    """Dimension/VMEM envelope (measured on v5e, round-4 boundaries from
-    benchmarks/envelope_probe.py): the estimator must pass the
-    measured-OK configurations and raise a clear error for the
-    measured-fail ones BEFORE compilation."""
-    import pytest
-    from gen_tpu.ops.hmc_fused import check_vmem_envelope
-
-    # measured OK on hardware under the raised 100 MiB cap
-    # (envelope_probe.py post-raise sweep: all configs compiled)
-    check_vmem_envelope("hmc", 2048, 1024, num_ticks=8)
-    check_vmem_envelope("nuts", 768, 1024, max_depth=8, hist_planes=2,
-                        num_ticks=8)
-    check_vmem_envelope("nuts", 102, 1024, max_depth=8, hist_planes=2,
-                        num_ticks=2000)   # 100-school eight_schools in
-                                          # ONE kernel call now
-    check_vmem_envelope("nuts", 512, 1024, max_depth=6, hist_planes=2,
-                        num_ticks=8)
-    # beyond the raised cap -> must still raise with actionable advice
-    with pytest.raises(ValueError, match="tile"):
-        check_vmem_envelope("hmc", 2304, 1024, num_ticks=16)
-    with pytest.raises(ValueError, match="max_depth"):
-        check_vmem_envelope("nuts", 1024, 1024, max_depth=8,
-                            hist_planes=2, num_ticks=8)
-    # the estimator math is cap-independent: under the OLD 16 MiB
-    # compiler default it must reproduce the round-4a measured aborts
-    # (nuts md8 d=128 aborted; the d=102 169-tick chunk measured 352KB
-    # over)
-    with pytest.raises(ValueError, match="max_depth"):
-        check_vmem_envelope("nuts", 128, 1024, max_depth=8, hist_planes=2,
-                            num_ticks=8, budget_bytes=16 << 20)
-    with pytest.raises(ValueError, match="max_depth"):
-        check_vmem_envelope("nuts", 102, 1024, max_depth=8, hist_planes=2,
-                            num_ticks=169, budget_bytes=16 << 20)
-    # tile < 1024 is structurally invalid (Pallas minor-dim constraint,
-    # measured: tile=512 dies in BlockSpec validation) -> clear error
-    with pytest.raises(ValueError, match="multiple of 1024"):
-        check_vmem_envelope("hmc", 64, 512, num_ticks=16)
-    # lowering max_depth widens the NUTS envelope
-    check_vmem_envelope("nuts", 140, 1024, max_depth=2, hist_planes=2,
-                        num_ticks=8)
-
-
-def test_hmc_chunked_driver_moments_and_sizing():
-    """hmc_chains_fused_chunked (ADVICE r3): stitched histories have the
-    full length, accept counts accumulate, moments stay correct on the
-    XLA fallback, and an impossible budget raises the actionable error
-    up front."""
-    import pytest
-    from gen_tpu.ops.hmc_fused import hmc_chains_fused_chunked
-
-    with jax.enable_x64(False):
-        sds = jnp.array([1.0, 2.0])
-
-        def logp(x):
-            return -0.5 * jnp.sum((x / sds) ** 2)
-
-        vals0 = jax.random.normal(KEY, (128, 2)) * sds
-        vals, collected, acc = hmc_chains_fused_chunked(
-            jax.random.PRNGKey(3), logp, vals0, n_steps=300,
-            chunk_steps=64, L=5, eps=0.5, collect_idx=None,
-            inv_mass_diag=sds ** 2, use_pallas=False)
-        assert collected.shape == (300, 128, 2)
-        assert vals.shape == (128, 2)
-        s = np.asarray(collected)[100:]
-        np.testing.assert_allclose(s[..., 0].std(), 1.0, rtol=0.1)
-        np.testing.assert_allclose(s[..., 1].std(), 2.0, rtol=0.1)
-        assert float(acc.mean()) > 50      # most proposals accepted
-
-        # budget too small for even one step of all-coordinate history
-        with pytest.raises(ValueError, match="1-step history chunk"):
-            hmc_chains_fused_chunked(
-                jax.random.PRNGKey(3), logp, vals0, n_steps=10,
-                collect_idx=None, vmem_budget_bytes=100 << 10,
-                use_pallas=False)
-
-
-def test_nuts_chunk_sizing_no_floor():
-    """The NUTS chunker must not force a 64-tick floor past the envelope
-    (ADVICE r3): at (d, max_depth) where 64 ticks of all-coordinate
-    history cannot fit, the computed chunk is smaller but valid, and the
-    impossible case raises up front with advice."""
-    import pytest
-    from gen_tpu.ops.nuts_fused import _nuts_chunk_ticks
-
-    d, tile, md = 48, 1024, 8
-    per_tick = (d + 1) * tile * 4
-    ticks = _nuts_chunk_ticks(d, tile, md, per_tick, 4096, 13 << 20)
-    assert ticks >= 1
-    # the chunk it sizes must itself pass the envelope check
-    from gen_tpu.ops.hmc_fused import check_vmem_envelope
-    check_vmem_envelope("nuts", d, tile, max_depth=md,
-                        hist_planes=d + 1, num_ticks=ticks)
-    with pytest.raises(ValueError, match="1-tick history chunk"):
-        _nuts_chunk_ticks(512, tile, md, (512 + 1) * tile * 4, 4096,
-                          13 << 20)
-
-
 def test_interpret_kernel_streamed_likelihood():
-    """The ACTUAL kernel (TPU interpreter) running a STREAMED
-    non-collapsible likelihood (robust-t regression, n = 2560 — VERDICT
-    r3 item 2): the dataset rides in SMEM, the logp runs the in-kernel
+    """The ACTUAL kernel (interpret mode) running a STREAMED
+    non-collapsible likelihood (robust-t regression, n = 2560): the
+    dataset is a table in device memory, the logp runs the in-kernel
     data loop with hand-assembled gradients, and the result matches the
     plain-XLA reference consuming the same injected randomness."""
     with jax.enable_x64(False):
@@ -564,53 +464,201 @@ def _run_interpret_streamed():
                                rtol=2e-4, atol=2e-4)
 
 
-def test_hbm_tiled_streaming_matches_smem():
-    """Datasets past the SMEM budget stream from HBM in DMA tiles
-    (round 5, VERDICT r4 item 4): same kernel, same injected randomness
-    — the HBM-tiled run must match the SMEM-resident run (and the tables
-    pad to whole tiles with masked edge values)."""
-    import gen_tpu.ops.scalarize as S
-    import gen_tpu.ops.hmc_fused as H
-    from gen_tpu.ops.scalarize import STREAM_TILE, stage_scalarized
+# ---- the in-kernel generator, padding, shapes, backend decision ----------
 
-    n = 6000
-    rng = np.random.default_rng(0)
-    xs_d = jnp.asarray(rng.standard_normal(n), jnp.float32)
-    ys_d = jnp.asarray(0.7 * np.asarray(xs_d) - 0.4
-                       + rng.standard_t(4, n), jnp.float32)
+def _interp_kernel(body, out_shape, *inputs):
+    """Run ``body(*input_refs, *output_refs)`` as a one-program
+    Triton-route kernel in interpret mode."""
+    import jax.experimental.pallas as pl
+    return pl.pallas_call(body, grid=(1,), backend="triton",
+                          out_shape=out_shape, interpret=True)(*inputs)
 
-    def logp(th):
-        r = ys_d - (th[0] * xs_d + th[1])
-        return (-0.5 * jnp.sum(5.0 * jnp.log1p(r * r / 4.0))
-                - 0.5 * (th[0] ** 2 + th[1] ** 2) / 100.0)
 
-    CAP = 40 * 1024     # force HBM mode (table is 48 KB) with room for
-    st = stage_scalarized(logp, 2, max_stream_bytes=CAP)  # the scratch
-    assert st.stream_hbm
-    assert st.stream_data.shape[1] % STREAM_TILE == 0
+@pytest.mark.parametrize("seed,count_shape", [
+    (0, (8,)), (1234567, (64,)), (2 ** 31 - 1, (4, 32))])
+def test_threefry_matches_jax(seed, count_shape):
+    """The kernel's Threefry-2x32 (add/rotate/xor only) gives the same
+    bits as jax.random's threefry primitive, in jnp and inside an
+    interpret-mode Triton kernel."""
+    from jax.extend.random import threefry2x32_p
+    from gen_tpu.ops.hmc_fused import threefry2x32
+    k0, k1 = jax.random.key_data(jax.random.PRNGKey(seed)).astype(jnp.uint32)
+    n = int(np.prod(count_shape))
+    x0 = jnp.arange(n, dtype=jnp.uint32).reshape(count_shape) * 7919
+    x1 = jnp.full(count_shape, seed % 1000, jnp.uint32) + 3
+    want = threefry2x32_p.bind(k0, k1, x0, x1)
+    got = threefry2x32(k0, k1, x0, x1)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    if len(count_shape) == 1:
+        def body(k_ref, x0_ref, x1_ref, o0, o1):
+            o0[...], o1[...] = threefry2x32(k_ref[0], k_ref[1], x0_ref[...],
+                                            x1_ref[...])
+        spec = jax.ShapeDtypeStruct(count_shape, jnp.uint32)
+        got_k = _interp_kernel(body, (spec, spec), jnp.stack([k0, k1]),
+                               x0, x1)
+        for a, b in zip(got_k, want):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-    vals0 = jnp.asarray(rng.standard_normal((64, 2)), jnp.float32) * 0.1
-    inj = (np.full((1,), 0.05, np.float32),
-           rng.standard_normal((1, 64, 2)).astype(np.float32),
-           rng.random((1, 64)).astype(np.float32))
-    v1, _, a1 = H.hmc_chains_fused(
-        jax.random.PRNGKey(0), logp, vals0, n_steps=1, L=2, eps=0.05,
-        injected_rng=inj, interpret=True)
-    orig = S.stage_scalarized
 
-    def forced(logp_, d, **kw):
-        kw["max_stream_bytes"] = CAP
-        return orig(logp_, d, **kw)
+def test_kernel_normals_pass_ks():
+    """Momentum draws as the kernel makes them (Box-Muller on Threefry
+    counters, inside an interpret-mode kernel) are standard normal (KS),
+    the accept uniforms uniform on (0, 1], the jitter draw shared."""
+    from scipy import stats
+    from gen_tpu.ops.hmc_fused import step_draws
+    with jax.enable_x64(False):
+        n, d = 4096, 3
 
-    S.stage_scalarized = forced
-    H.hmc_chains_fused._clear_cache()
-    try:
-        v2, _, a2 = H.hmc_chains_fused(
-            jax.random.PRNGKey(0), logp, vals0, n_steps=1, L=2, eps=0.05,
-            injected_rng=inj, interpret=True)
-    finally:
-        S.stage_scalarized = orig
-        H.hmc_chains_fused._clear_cache()
-    np.testing.assert_allclose(np.asarray(v1), np.asarray(v2),
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
+        def body(k_ref, z_ref, u_ref, e_ref):
+            lane = jax.lax.iota(jnp.int32, n).astype(jnp.uint32)
+            e, z, u = step_draws(k_ref[0], k_ref[1], lane, 5, d)
+            for k in range(d):
+                z_ref[k, :] = z[k]
+            u_ref[...] = u
+            e_ref[...] = e + jnp.zeros((n,), jnp.float32)
+
+        z, u, e = _interp_kernel(body, (
+            jax.ShapeDtypeStruct((d, n), jnp.float32),
+            jax.ShapeDtypeStruct((n,), jnp.float32),
+            jax.ShapeDtypeStruct((n,), jnp.float32)),
+            jnp.asarray([17, 4242], jnp.uint32))
+    z, u, e = np.asarray(z), np.asarray(u), np.asarray(e)
+    for k in range(d):
+        assert stats.kstest(z[k], "norm").pvalue > 1e-3
+    assert stats.kstest(u, "uniform").pvalue > 1e-3
+    assert u.min() > 0.0 and u.max() <= 1.0
+    assert np.all(e == e[0]) and 0.0 <= e[0] < 1.0
+
+
+def test_kernel_own_generator_matches_reproduced_draws():
+    """Without injected randomness the kernel draws from its own
+    generator; step_draws reproduces those draws outside the kernel, so
+    the reference consuming them matches the kernel exactly."""
+    from gen_tpu.ops.hmc_fused import step_draws
+    with jax.enable_x64(False):
+        sds = jnp.array([1.0, 2.0])
+
+        def logp(x):
+            return -0.5 * jnp.sum((x / sds) ** 2)
+
+        n, d, n_steps, L, eps, jit = 256, 2, 6, 3, 0.4, 0.2
+        key = jax.random.PRNGKey(9)
+        vals0 = jax.random.normal(KEY, (n, d)) * sds
+        vk, ck, ak = hmc_chains_fused(key, logp, vals0, n_steps=n_steps,
+                                      L=L, eps=eps, eps_jitter=jit,
+                                      collect_idx=None, interpret=True)
+        k0, k1 = jax.random.key_data(key).astype(jnp.uint32)
+        lane = jnp.arange(n, dtype=jnp.uint32)
+        eps_s, zs, us = [], [], []
+        for i in range(n_steps):
+            e, z, u = step_draws(k0, k1, lane, i, d)
+            eps_s.append(eps * (1.0 - jit + 2.0 * jit * e))
+            zs.append(jnp.stack(z, axis=1))
+            us.append(u)
+        vr, cr, ar = _reference_hmc_injected(
+            logp, vals0, jnp.stack(eps_s), jnp.stack(zs), jnp.stack(us), L,
+            jnp.ones(d), None)
+    np.testing.assert_array_equal(np.asarray(ak), np.asarray(ar))
+    np.testing.assert_allclose(np.asarray(ck), np.asarray(cr), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [200, 70])
+def test_padding_gives_unpadded_result(n):
+    """A chain count that is not a multiple of the block pads with copies
+    of chain 0; the un-padded result equals the run over a whole number
+    of blocks restricted to its first n chains."""
+    from gen_tpu.ops.hmc_fused import _BLOCK
+    with jax.enable_x64(False):
+        def logp(x):
+            return -0.5 * jnp.sum(x * x)
+
+        n_full = -(-n // _BLOCK) * _BLOCK
+        d, n_steps = 2, 3
+        vals = jax.random.normal(KEY, (n_full, d))
+        rng = _injected_rng(jax.random.PRNGKey(2), n_steps, n_full, d,
+                            0.3, 0.2)
+        full = hmc_chains_fused(KEY, logp, vals, n_steps=n_steps, L=2,
+                                eps=0.3, collect_idx=1, injected_rng=rng,
+                                interpret=True)
+        part = hmc_chains_fused(
+            KEY, logp, vals[:n], n_steps=n_steps, L=2, eps=0.3,
+            collect_idx=1, interpret=True,
+            injected_rng=(rng[0], rng[1][:, :n], rng[2][:, :n]))
+    assert part[0].shape == (n, d) and part[1].shape == (n_steps, n)
+    np.testing.assert_array_equal(np.asarray(part[0]),
+                                  np.asarray(full[0][:n]))
+    np.testing.assert_array_equal(np.asarray(part[1]),
+                                  np.asarray(full[1][:, :n]))
+    np.testing.assert_array_equal(np.asarray(part[2]),
+                                  np.asarray(full[2][:n]))
+
+
+@pytest.mark.parametrize("collect_idx", [None, 0, 2])
+def test_kernel_collected_shapes(collect_idx):
+    """collect_idx=None records every coordinate ((steps, n, d)); an int
+    records one ((steps, n)) — and it is that coordinate of the full
+    record."""
+    with jax.enable_x64(False):
+        def logp(x):
+            return -0.5 * jnp.sum(x * x)
+
+        n, d, n_steps = 96, 3, 4
+        vals = jax.random.normal(KEY, (n, d))
+        rng = _injected_rng(jax.random.PRNGKey(4), n_steps, n, d, 0.3, 0.2)
+        v, c, a = hmc_chains_fused(KEY, logp, vals, n_steps=n_steps, L=2,
+                                   eps=0.3, collect_idx=collect_idx,
+                                   injected_rng=rng, interpret=True)
+        _, c_all, _ = hmc_chains_fused(KEY, logp, vals, n_steps=n_steps,
+                                       L=2, eps=0.3, collect_idx=None,
+                                       injected_rng=rng, interpret=True)
+    assert v.shape == (n, d) and a.shape == (n,)
+    if collect_idx is None:
+        assert c.shape == (n_steps, n, d)
+    else:
+        assert c.shape == (n_steps, n)
+        np.testing.assert_array_equal(np.asarray(c),
+                                      np.asarray(c_all[..., collect_idx]))
+    np.testing.assert_array_equal(np.asarray(c_all[-1]), np.asarray(v))
+
+
+@pytest.mark.parametrize("platform,expect", [
+    ("gpu", True), ("cpu", False), ("rocm", None), ("metal", None)])
+def test_backend_decision(platform, expect):
+    """One decision: the kernel on 'gpu', the XLA reference on 'cpu',
+    and any other platform raises."""
+    from gen_tpu.ops.backend import kernel_platform
+    if expect is None:
+        with pytest.raises(NotImplementedError, match="platform"):
+            kernel_platform(platform)
+    else:
+        assert kernel_platform(platform) is expect
+
+
+@pytest.mark.parametrize("d", [1, 3, 16])
+def test_d_crossover_rule(d):
+    """The kernel serves d up to HMC_KERNEL_MAX_D on the GPU; past it (and
+    on the CPU) the XLA sampler runs."""
+    from gen_tpu.ops.backend import HMC_KERNEL_MAX_D, hmc_kernel_route
+    assert hmc_kernel_route(d, "gpu") is (d <= HMC_KERNEL_MAX_D)
+    assert hmc_kernel_route(HMC_KERNEL_MAX_D * d + 1, "gpu") is False
+    assert hmc_kernel_route(d, "cpu") is False
+
+
+def test_unstaged_logp_runs_xla_path():
+    """A logp the kernel cannot stage (a sort) is reported by
+    stage_for_kernel, refused by the kernel's interpret hook, and sampled
+    by the XLA path where it is dispatched."""
+    from gen_tpu.ops.hmc_fused import stage_for_kernel
+
+    def logp(x):
+        return -0.5 * jnp.sum(jnp.sort(x) ** 2)
+
+    staged, reason = stage_for_kernel(logp, 2)
+    assert staged is None and "sort" in reason
+    with pytest.raises(ValueError, match="does not stage"):
+        hmc_chains_fused(KEY, logp, jnp.zeros((8, 2)), n_steps=2,
+                         interpret=True)
+    v, c, a = hmc_chains_fused(KEY, logp, jnp.zeros((8, 2)), n_steps=2)
+    assert v.shape == (8, 2) and c.shape == (2, 8)

@@ -1,6 +1,6 @@
 """LGSSM model family: Kalman filter/smoother vs the dense-joint-Gaussian
 oracle, collapsed-distribution GFI weights, SMC log-ML agreement, and the
-MXU-path batched MVN kernel vs the per-row reference implementation.
+matmul-path batched MVN kernel vs the per-row reference implementation.
 
 Mirrors the reference test strategy (SURVEY.md §4.3: PF tested against an
 exact forward algorithm — test/inference/particle_filter.jl:1-170); here
@@ -246,7 +246,7 @@ def test_mvn_logpdf_rows_matches_reference():
 
 
 def test_mvn_logpdf_rows_bf16_close():
-    """bf16 MXU path stays within the documented tolerance of f32."""
+    """bf16 matmul path stays within the documented tolerance of f32."""
     rng = np.random.default_rng(13)
     n, d = 256, 16
     cov_half = rng.standard_normal((d, d))

@@ -1,5 +1,5 @@
 """Masked (dynamically-present) constraints — per-element observation
-patterns under vmap, the TPU-side extension the reference cannot express
+patterns under vmap, the accelerator-side extension the reference cannot express
 (its constraint structure is always host-concrete)."""
 
 import jax

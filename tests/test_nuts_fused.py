@@ -1,9 +1,7 @@
-"""Fused Pallas FSM-NUTS (ops/nuts_fused.py): the ACTUAL kernel logic runs
-on CPU via the Pallas TPU interpreter with injected host-side randomness
-and must reproduce the XLA reference ``inference.nuts_fsm.nuts_fsm``
-consuming the same randomness — every U-turn decision, checkpoint,
-candidate take, tree merge, and trajectory completion, tick for tick.
-On-core-PRNG statistics remain TPU-only (benchmarks)."""
+"""Many-chain FSM-NUTS (ops/nuts_fused.py): the one-call engine is the
+vmapped pair-scheduled FSM (``inference.nuts_fsm.nuts_fsm_paired``) —
+exactly, under the same keys — and its draws, chunked driver, draw
+collector and frozen-coordinate conditioning recover exact moments."""
 
 import jax
 import jax.numpy as jnp
@@ -12,128 +10,15 @@ import pytest
 
 import gen_tpu as gt
 from gen_tpu import choicemap, gen, select
-from gen_tpu.inference.nuts_fsm import nuts_fsm
-from gen_tpu.inference.target import FlatTarget
 from gen_tpu.ops.nuts_fused import nuts_chains_fused
 
 KEY = jax.random.PRNGKey(0)
 
 
-def _injected(key, ticks, n, d):
-    ks = jax.random.split(key, 5)
-    z = jax.random.normal(ks[0], (ticks, n, d))
-    us = [jnp.clip(jax.random.uniform(ks[i], (ticks, n)), 1e-6, 1.0 - 1e-6)
-          for i in range(1, 5)]
-    return (z, *us)
-
-
-def _reference_fsm_injected(logp, values0, rng, eps, ticks, max_depth,
-                            inv_mass, collect_idx):
-    vag = jax.value_and_grad(logp)
-    n = values0.shape[0]
-    z, u0, ut, ub, ud = rng
-
-    def one(i):
-        inj = (z[:, i], u0[:, i], ut[:, i], ub[:, i], ud[:, i])
-        # ckpt_bf16=True: the kernel packs U-turn checkpoints bf16x2, and
-        # the FSM reference must round identically for tick-exactness
-        return nuts_fsm(jax.random.PRNGKey(0), vag, values0[i], eps, ticks,
-                        max_depth=max_depth, inv_mass_diag=inv_mass,
-                        num_sample_slots=8, injected_rng=inj,
-                        collect_idx=collect_idx, ckpt_bf16=True)
-
-    res, (hist, hist_cnt) = jax.vmap(one)(jnp.arange(n))
-    return res, hist.T, hist_cnt.T
-
-
-def test_interpret_kernel_matches_fsm_reference_exactly():
-    with jax.enable_x64(False):
-        _run_interpret_gaussian()
-
-
-def _run_interpret_gaussian():
-    sds = jnp.array([1.0, 3.0, 0.5])
-
-    def logp(x):
-        return -0.5 * jnp.sum((x / sds) ** 2)
-
-    n, d, ticks, max_depth = 256, 3, 48, 5
-    vals0 = jax.random.normal(KEY, (n, d)) * sds
-    inv_mass = sds ** 2
-    rng = _injected(jax.random.PRNGKey(7), ticks, n, d)
-
-    vals_k, hist_k, hcnt_k, cnt_k, stats_k = nuts_chains_fused(
-        jax.random.PRNGKey(1), logp, vals0, num_ticks=ticks, eps=0.6,
-        max_depth=max_depth, inv_mass_diag=inv_mass, collect_idx=1,
-        injected_rng=rng, interpret=True)
-    res_r, hist_r, hcnt_r = _reference_fsm_injected(
-        logp, vals0, rng, 0.6, ticks, max_depth, inv_mass, 1)
-
-    # trajectory-count and divergence bookkeeping must agree exactly
-    np.testing.assert_array_equal(np.asarray(cnt_k), np.asarray(res_r.counts))
-    np.testing.assert_array_equal(np.asarray(hcnt_k), np.asarray(hcnt_r))
-    np.testing.assert_array_equal(np.asarray(stats_k["num_divergent"]),
-                                  np.asarray(res_r.num_divergent))
-    np.testing.assert_allclose(np.asarray(vals_k), np.asarray(res_r.theta),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(hist_k), np.asarray(hist_r),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(stats_k["mean_accept"]),
-                               np.asarray(res_r.mean_accept),
-                               rtol=1e-4, atol=1e-5)
-    assert int(cnt_k.min()) > 0
-
-
-def test_interpret_kernel_scalarized_model():
-    """Kernel on the full GFI assess-logp via scalarize (the production
-    configuration), exact against the XLA FSM."""
-    with jax.enable_x64(False):
-        _run_interpret_scalarized()
-
-
-def _run_interpret_scalarized():
-    n_pts = 50
-    xs = jnp.linspace(-3.0, 3.0, n_pts)
-    rng0 = np.random.default_rng(0)
-    ys = 0.7 * xs - 0.4 + 0.5 * jnp.asarray(rng0.standard_normal(n_pts))
-    X = jnp.stack([xs, jnp.ones_like(xs)], axis=1)
-
-    @gen
-    def m(X):
-        slope = gt.normal(0.0, 2.0) @ "slope"
-        intercept = gt.normal(0.0, 2.0) @ "intercept"
-        log_noise = gt.normal(0.0, 1.0) @ "log_noise"
-        gt.normal_linear(X, jnp.stack([slope, intercept]),
-                         jnp.exp(log_noise)) @ "ys"
-
-    one, _ = m.generate(KEY, (X,), choicemap(ys=ys))
-    target = FlatTarget(one, select("slope", "intercept", "log_noise"))
-
-    n, d, ticks, max_depth = 256, 3, 32, 5
-    vals0 = 0.05 * jax.random.normal(KEY, (n, d))
-    rng = _injected(jax.random.PRNGKey(3), ticks, n, d)
-
-    vals_k, hist_k, hcnt_k, cnt_k, _ = nuts_chains_fused(
-        jax.random.PRNGKey(1), target.logp, vals0, num_ticks=ticks,
-        eps=0.03, max_depth=max_depth, collect_idx=0, injected_rng=rng,
-        interpret=True)
-    res_r, hist_r, hcnt_r = _reference_fsm_injected(
-        target.logp, vals0, rng, 0.03, ticks, max_depth, jnp.ones(d), 0)
-
-    # the scalarized staging reorders float arithmetic (rtol accordingly);
-    # discrete bookkeeping must still agree on essentially every chain
-    agree = np.mean(np.asarray(cnt_k) == np.asarray(res_r.counts))
-    assert agree > 0.98, agree
-    match = np.isclose(np.asarray(vals_k), np.asarray(res_r.theta),
-                       rtol=2e-3, atol=2e-3).all(axis=1)
-    assert np.mean(match) > 0.98, np.mean(match)
-
-
 def test_fallback_gaussian_moments():
-    """XLA fallback path (vmapped nuts_fsm): anisotropic Gaussian moments
-    recovered from the per-tick history. x64 off: the entry point is an
-    f32 program (as on TPU) and the suite-wide x64 default would promote
-    the closure constants."""
+    """The vmapped pair FSM: anisotropic Gaussian moments recovered from
+    the per-tick history. x64 off: the entry point is an f32 program and
+    the suite-wide x64 default would promote the closure constants."""
     with jax.enable_x64(False):
         _run_fallback_gaussian_moments()
 
@@ -147,12 +32,11 @@ def _run_fallback_gaussian_moments():
     vals0 = jax.random.normal(KEY, (128, 2)) * sds
     vals, hist, hcnt, cnt, stats = nuts_chains_fused(
         jax.random.PRNGKey(2), logp, vals0, num_ticks=600, eps=0.5,
-        max_depth=6, inv_mass_diag=sds ** 2, collect_idx=1,
-        use_pallas=False)
+        max_depth=6, inv_mass_diag=sds ** 2, collect_idx=1)
     assert vals.shape == (128, 2)
-    assert hist.shape == (600, 128)
-    assert hcnt.shape == (600, 128)
-    s = np.asarray(hist)[200:]
+    assert hist.shape == (300, 128)        # one row per two-leapfrog tick
+    assert hcnt.shape == (300, 128)
+    s = np.asarray(hist)[100:]
     assert abs(s.mean()) < 0.35
     np.testing.assert_allclose(s.std(), 4.0, rtol=0.1)
     assert int(cnt.min()) > 0
@@ -173,8 +57,8 @@ def test_chunked_driver_stitches_streams():
         vals0 = jax.random.normal(KEY, (64, 2)) * 2.0
         vals, hist, hcnt, cnt, stats = nuts_chains_fused_chunked(
             jax.random.PRNGKey(3), logp, vals0, num_ticks=600, eps=0.5,
-            chunk_ticks=150, max_depth=6, collect_idx=1, use_pallas=False)
-        assert hist.shape == (600, 64) and hcnt.shape == (600, 64)
+            chunk_ticks=150, max_depth=6, collect_idx=1)
+        assert hist.shape == (300, 64) and hcnt.shape == (300, 64)
         dif = np.diff(np.asarray(hcnt), axis=0)
         assert (dif >= 0).all()
         np.testing.assert_array_equal(np.asarray(hcnt[-1]), np.asarray(cnt))
@@ -186,54 +70,6 @@ def test_chunked_driver_stitches_streams():
         np.testing.assert_allclose(draws[m // 4:].std(), 1.0, rtol=0.12)
 
 
-def test_interpret_kernel_frozen_coordinates_match_fsm():
-    """Frozen-coordinate masking (inv_mass == 0 => infinite mass): the
-    kernel with a frozen coordinate must (a) never move it, (b) remain
-    tick-exact against the XLA FSM with the same mask — this is the
-    mechanism carrying Gibbs-within-NUTS blocks and per-chain conditioning
-    values through the fused kernel (VERDICT r2 item 7; reference
-    selection contract: gen_fn_interface.jl:292-334)."""
-    with jax.enable_x64(False):
-        _run_interpret_frozen()
-
-
-def _run_interpret_frozen():
-    sds = jnp.array([1.0, 3.0, 0.5, 2.0])
-
-    def logp(x):
-        # coordinate 2 enters the density (it conditions the others)
-        return (-0.5 * jnp.sum((x / sds) ** 2)
-                - 0.3 * x[0] * x[2] - 0.1 * x[1] * x[2])
-
-    n, d, ticks, max_depth = 128, 4, 40, 5
-    vals0 = jax.random.normal(KEY, (n, d)) * sds
-    inv_mass = (sds ** 2).at[2].set(0.0)     # freeze coordinate 2
-    rng = _injected(jax.random.PRNGKey(3), ticks, n, d)
-
-    vals_k, hist_k, hcnt_k, cnt_k, stats_k = nuts_chains_fused(
-        jax.random.PRNGKey(1), logp, vals0, num_ticks=ticks, eps=0.5,
-        max_depth=max_depth, inv_mass_diag=inv_mass, collect_idx=2,
-        injected_rng=rng, interpret=True)
-    res_r, hist_r, hcnt_r = _reference_fsm_injected(
-        logp, vals0, rng, 0.5, ticks, max_depth, inv_mass, 2)
-
-    # the frozen coordinate never moves, in either engine
-    np.testing.assert_allclose(np.asarray(vals_k[:, 2]),
-                               np.asarray(vals0[:, 2]), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(res_r.theta[:, 2]),
-                               np.asarray(vals0[:, 2]), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(hist_k),
-                               np.asarray(vals0[:, 2])[None, :].repeat(
-                                   ticks, 0), rtol=0, atol=1e-6)
-    # free coordinates: kernel ticks pin to the FSM exactly
-    np.testing.assert_array_equal(np.asarray(cnt_k),
-                                  np.asarray(res_r.counts))
-    np.testing.assert_array_equal(np.asarray(hcnt_k), np.asarray(hcnt_r))
-    np.testing.assert_allclose(np.asarray(vals_k), np.asarray(res_r.theta),
-                               rtol=1e-5, atol=1e-5)
-    assert int(cnt_k.min()) > 0
-
-
 def test_frozen_mask_gibbs_within_nuts_gmm():
     """Mixed discrete/continuous inference THROUGH the fused-NUTS engine:
     2-component GMM where the means move by NUTS (free coordinates) while
@@ -242,9 +78,9 @@ def test_frozen_mask_gibbs_within_nuts_gmm():
     (inv_mass = 0), updated between NUTS calls by an exact discrete Gibbs
     step. Cross-chain moments of the means must match EXACT enumeration
     over all 2^N assignment vectors (conjugate per-cluster evidence).
-    This is the 'observed-subset conditioning reaches the kernel' contract:
-    per-chain conditioning values live in kernel state, not in the shared
-    staged residual."""
+    This is the 'observed-subset conditioning reaches the sampler'
+    contract: per-chain conditioning values live in the chain state, not
+    in the shared closure."""
     with jax.enable_x64(False):
         _run_gibbs_within_nuts_gmm()
 
@@ -314,7 +150,7 @@ def _run_gibbs_within_nuts_gmm():
         k_n, k_g = jax.random.split(jax.random.fold_in(key, it))
         v, _, _, _, _ = nuts_chains_fused(
             k_n, logp, v, num_ticks=ticks, eps=0.3, max_depth=4,
-            inv_mass_diag=inv_mass, collect_idx=0, use_pallas=False)
+            inv_mass_diag=inv_mass, collect_idx=0)
         v = gibbs_assignments(k_g, v)
 
     mu0 = np.asarray(v[:, 0], np.float64)
@@ -342,7 +178,7 @@ def test_collect_draws_matches_stitched_extraction():
     n, ticks = 64, 240
     vals0 = jax.random.normal(KEY, (n, 2)) * sds
     key = jax.random.PRNGKey(5)
-    kw = dict(eps=0.7, max_depth=4, collect_idx=1, use_pallas=False)
+    kw = dict(eps=0.7, max_depth=4, collect_idx=1)
 
     _, hist, hcnt, cnt, _ = nuts_chains_fused_chunked(
         key, logp, vals0, num_ticks=ticks, chunk_ticks=80, **kw)
@@ -357,73 +193,6 @@ def test_collect_draws_matches_stitched_extraction():
     assert np.all(np.isfinite(got))
     np.testing.assert_allclose(got, ref[:m], rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(np.asarray(counts) >= m, True)
-
-
-# ---- pair-scheduled kernel (paired=True) ---------------------------------
-
-def _injected_pair(key, pairs, n, d):
-    ks = jax.random.split(key, 8)
-    z = jax.random.normal(ks[0], (pairs, n, d))
-    us = [jnp.clip(jax.random.uniform(ks[i], (pairs, n)), 1e-6, 1.0 - 1e-6)
-          for i in range(1, 8)]
-    return (z, *us)
-
-
-def _reference_pair_injected(logp, values0, rng, eps, pairs, max_depth,
-                             inv_mass, collect_idx):
-    from gen_tpu.inference.nuts_fsm import nuts_fsm_paired
-    vag = jax.value_and_grad(logp)
-    n = values0.shape[0]
-    inj_chain = tuple(jnp.moveaxis(jnp.asarray(x), 0, 1) for x in rng)
-    res, (hist, hcnt) = jax.vmap(
-        lambda kk, t, *xs: nuts_fsm_paired(
-            kk, vag, t, eps, pairs, max_depth=max_depth,
-            inv_mass_diag=inv_mass, injected_rng=xs,
-            collect_idx=collect_idx, ckpt_bf16=True))(
-        jax.random.split(jax.random.PRNGKey(2), n), values0, *inj_chain)
-    return res, hist.T, hcnt.T
-
-
-def test_interpret_pair_kernel_matches_pair_twin_exactly():
-    """The pair-scheduled kernel (two leapfrogs per fori tick, subtree
-    starts aligned to pair boundaries) vs its XLA twin
-    ``nuts_fsm_paired`` on the same injected randomness: every count,
-    sample, history row, and stat must match pair for pair."""
-    with jax.enable_x64(False):
-        _run_interpret_pair()
-
-
-def _run_interpret_pair():
-    sds = jnp.array([1.0, 3.0, 0.5, 2.0])
-
-    def logp(x):
-        return (-0.5 * jnp.sum((x / sds) ** 2)
-                - 0.3 * x[0] * x[2] - 0.1 * x[1] * x[3])
-
-    n, d, pairs, max_depth = 128, 4, 40, 5
-    vals0 = jax.random.normal(KEY, (n, d)) * sds
-    inv_mass = sds ** 2
-    rng = _injected_pair(jax.random.PRNGKey(11), pairs, n, d)
-
-    vals_k, hist_k, hcnt_k, cnt_k, stats_k = nuts_chains_fused(
-        jax.random.PRNGKey(1), logp, vals0, num_ticks=2 * pairs, eps=0.45,
-        max_depth=max_depth, inv_mass_diag=inv_mass, collect_idx=2,
-        injected_rng=rng, interpret=True, paired=True)
-    res_r, hist_r, hcnt_r = _reference_pair_injected(
-        logp, vals0, rng, 0.45, pairs, max_depth, inv_mass, 2)
-
-    np.testing.assert_array_equal(np.asarray(cnt_k),
-                                  np.asarray(res_r.counts))
-    np.testing.assert_array_equal(np.asarray(hcnt_k), np.asarray(hcnt_r))
-    np.testing.assert_allclose(np.asarray(hist_k), np.asarray(hist_r),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(vals_k), np.asarray(res_r.theta),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(stats_k["mean_accept"]),
-                               np.asarray(res_r.mean_accept), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(stats_k["mean_depth"]),
-                               np.asarray(res_r.mean_depth), rtol=1e-5)
-    assert int(cnt_k.min()) > 0
 
 
 def test_pair_twin_moments_match_exact():
@@ -458,46 +227,9 @@ def test_pair_twin_moments_match_exact():
     assert np.abs(dd.mean(axis=(0, 1)) / np.asarray(sds)).max() < 0.05
 
 
-def test_interpret_pair_frozen_coordinates():
-    """Frozen coordinates (inv_mass == 0) through the PAIR kernel: the
-    coordinate never moves and the kernel stays pair-exact vs the twin
-    with the same mask (the Gibbs-within-NUTS conditioning contract)."""
-    with jax.enable_x64(False):
-        _run_interpret_pair_frozen()
-
-
-def _run_interpret_pair_frozen():
-    sds = jnp.array([1.0, 3.0, 0.5, 2.0])
-
-    def logp(x):
-        return (-0.5 * jnp.sum((x / sds) ** 2)
-                - 0.3 * x[0] * x[2] - 0.1 * x[1] * x[2])
-
-    n, d, pairs, max_depth = 128, 4, 24, 5
-    vals0 = jax.random.normal(KEY, (n, d)) * sds
-    inv_mass = (sds ** 2).at[2].set(0.0)
-    rng = _injected_pair(jax.random.PRNGKey(3), pairs, n, d)
-
-    vals_k, hist_k, hcnt_k, cnt_k, _ = nuts_chains_fused(
-        jax.random.PRNGKey(1), logp, vals0, num_ticks=2 * pairs, eps=0.5,
-        max_depth=max_depth, inv_mass_diag=inv_mass, collect_idx=2,
-        injected_rng=rng, interpret=True, paired=True)
-    res_r, hist_r, hcnt_r = _reference_pair_injected(
-        logp, vals0, rng, 0.5, pairs, max_depth, inv_mass, 2)
-
-    np.testing.assert_allclose(np.asarray(vals_k[:, 2]),
-                               np.asarray(vals0[:, 2]), rtol=0, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(cnt_k),
-                                  np.asarray(res_r.counts))
-    np.testing.assert_array_equal(np.asarray(hcnt_k), np.asarray(hcnt_r))
-    np.testing.assert_allclose(np.asarray(vals_k), np.asarray(res_r.theta),
-                               rtol=1e-5, atol=1e-5)
-    assert int(cnt_k.min()) > 0
-
-
 def test_paired_chunked_driver_stitches():
-    """The chunked driver with paired=True: cumulative counts stitch
-    across chunk boundaries and extracted draws are finite/sane."""
+    """The chunked driver: cumulative counts stitch across chunk
+    boundaries and extracted draws are finite/sane."""
     from gen_tpu.ops.nuts_fused import (extract_completed_draws,
                                         nuts_chains_fused_chunked)
 
@@ -510,8 +242,7 @@ def test_paired_chunked_driver_stitches():
     vals0 = jax.random.normal(KEY, (n, 2)) * sds
     _, hist, hcnt, cnt, _ = nuts_chains_fused_chunked(
         jax.random.PRNGKey(5), logp, vals0, num_ticks=ticks,
-        chunk_ticks=80, eps=0.7, max_depth=4, collect_idx=1,
-        use_pallas=False, paired=True)
+        chunk_ticks=80, eps=0.7, max_depth=4, collect_idx=1)
     m = int(jnp.min(cnt))
     assert m > 10
     np.testing.assert_array_equal(np.asarray(hcnt[-1]), np.asarray(cnt))
@@ -520,47 +251,37 @@ def test_paired_chunked_driver_stitches():
     assert abs(draws[m // 4:].mean()) < 0.35
 
 
-def test_interpret_pair_divergence_paths_exact():
-    """The pair kernel's DIVERGENCE handling (slot-1 divergences end the
-    trajectory via the mini-merge and idle slot 2; slot-2 via the full
-    merge) vs the twin, with ~200 real divergences exercised (eps large
-    enough + a low divergence threshold). At chaotic settings (eps 1.4,
-    thr 2.0) ulp-level logp differences between the staged and direct
-    paths amplify into decision flips in BOTH the paired and unpaired
-    engines (measured: 51/128 count mismatches UNPAIRED) — this config
-    stays below that regime and must match exactly."""
+@pytest.mark.parametrize("collect_idx", [1, None])
+def test_one_call_engine_is_vmapped_pair_fsm(collect_idx):
+    """nuts_chains_fused is nuts_fsm_paired vmapped over chains with the
+    keys split from its key, in ONE call: same keys, same decisions and
+    counts; positions agree to f32 rounding (the one-call program is
+    compiled as a whole, the reference op by op)."""
+    from gen_tpu.inference.nuts_fsm import nuts_fsm_paired
     with jax.enable_x64(False):
-        sds = jnp.array([1.0, 3.0, 0.5, 2.0])
+        sds = jnp.array([1.0, 3.0, 0.5])
 
         def logp(x):
-            return (-0.5 * jnp.sum((x / sds) ** 2) - 0.3 * x[0] * x[2])
+            return -0.5 * jnp.sum((x / sds) ** 2) - 0.2 * x[0] * x[2]
 
-        n, d, pairs, md = 128, 4, 40, 5
-        vals0 = jax.random.normal(KEY, (n, d)) * sds
-        rng = _injected_pair(jax.random.PRNGKey(7), pairs, n, d)
-        vk, hk, hck, ck_, sk = nuts_chains_fused(
-            jax.random.PRNGKey(1), logp, vals0, num_ticks=2 * pairs,
-            eps=0.9, max_depth=md, collect_idx=2,
-            divergence_threshold=4.0, injected_rng=rng, interpret=True,
-            paired=True)
-        from gen_tpu.inference.nuts_fsm import nuts_fsm_paired
+        n, ticks = 32, 60
+        vals0 = jax.random.normal(KEY, (n, 3)) * sds
+        key = jax.random.PRNGKey(8)
+        v, hist, hcnt, cnt, stats = nuts_chains_fused(
+            key, logp, vals0, num_ticks=ticks, eps=0.4, max_depth=5,
+            inv_mass_diag=sds ** 2, collect_idx=collect_idx)
         vag = jax.value_and_grad(logp)
-        injc = tuple(jnp.moveaxis(jnp.asarray(x), 0, 1) for x in rng)
-        res_r, (hist_r, hcnt_r) = jax.vmap(
-            lambda kk, t, *xs: nuts_fsm_paired(
-                kk, vag, t, 0.9, pairs, max_depth=md,
-                divergence_threshold=4.0, injected_rng=xs,
-                collect_idx=2, ckpt_bf16=True))(
-            jax.random.split(jax.random.PRNGKey(2), n), vals0, *injc)
-        ndiv = int(np.asarray(sk["num_divergent"]).sum())
-        assert ndiv > 50, ndiv
-        np.testing.assert_array_equal(np.asarray(ck_),
-                                      np.asarray(res_r.counts))
-        np.testing.assert_array_equal(np.asarray(hck),
-                                      np.asarray(hcnt_r.T))
-        np.testing.assert_allclose(np.asarray(vk),
-                                   np.asarray(res_r.theta),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_array_equal(
-            np.asarray(sk["num_divergent"]),
-            np.asarray(res_r.num_divergent))
+        res, (h_r, c_r) = jax.vmap(lambda kk, t: nuts_fsm_paired(
+            kk, vag, t, 0.4, ticks // 2, max_depth=5,
+            inv_mass_diag=sds ** 2,
+            collect_idx="all" if collect_idx is None else collect_idx))(
+            jax.random.split(key, n), vals0)
+    np.testing.assert_array_equal(np.asarray(cnt), np.asarray(res.counts))
+    np.testing.assert_array_equal(np.asarray(hcnt), np.asarray(c_r).T)
+    np.testing.assert_allclose(np.asarray(hist),
+                               np.asarray(jnp.moveaxis(h_r, 0, 1)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(v), np.asarray(res.theta),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(stats["mean_depth"]),
+                               np.asarray(res.mean_depth), rtol=1e-6)

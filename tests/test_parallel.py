@@ -15,8 +15,13 @@ from gen_tpu.parallel import (chain_mesh, device_count,
                               sharded_importance_sampling, shard_keys,
                               sharded_vi_step)
 
-pytestmark = pytest.mark.skipif(device_count() < 2,
-                                reason="needs multiple devices")
+
+
+@pytest.fixture(autouse=True)
+def _multi_device():
+    """Decided at run time, not at import: the mesh tests need devices."""
+    if device_count() < 2:
+        pytest.skip("needs multiple devices")
 
 KEY = jax.random.PRNGKey(0)
 
@@ -111,10 +116,13 @@ def test_sharded_hmc_chains_fused_cpu_mesh():
     assert vals.shape == (64, 2) and coll.shape == (300, 64)
     s = np.asarray(coll)[50:]
     assert abs(s.mean()) < 0.1 and abs(s.std() - 1.0) < 0.1
+    compiled = sharded_hmc_chains_fused._cache_size()
     v2, _, _ = sharded_hmc_chains_fused(
         jax.random.PRNGKey(1), logp, vals0, n_steps=300, mesh=mesh,
         L=5, eps=0.5)
     np.testing.assert_array_equal(np.asarray(vals), np.asarray(v2))
+    # a repeated call reuses the compiled program (no retrace)
+    assert sharded_hmc_chains_fused._cache_size() == compiled
 
 
 def test_sharded_hmc_chains_fused_inv_mass():
@@ -140,10 +148,40 @@ def test_sharded_hmc_chains_fused_inv_mass():
     assert abs(s[..., 1].std() - 0.2) < 0.02
 
 
+def test_sharded_kernel_interpret_matches_per_shard_runs():
+    """The Pallas kernel itself under shard_map (interpret mode on the CPU
+    mesh): each device's shard equals hmc_chains_fused run alone on that
+    shard with the device-folded key."""
+    from gen_tpu.ops.hmc_fused import hmc_chains_fused
+    from gen_tpu.parallel.sharded import sharded_hmc_chains_fused
+
+    def logp(x):
+        return -0.5 * jnp.sum(x * x)
+
+    mesh = chain_mesh(4)
+    key = jax.random.PRNGKey(5)
+    vals0 = jax.random.normal(jax.random.PRNGKey(4), (32, 3))
+    with jax.enable_x64(False):
+        vals, coll, accs = sharded_hmc_chains_fused(
+            key, logp, vals0, n_steps=3, mesh=mesh, L=2, eps=0.3,
+            interpret=True)
+        for i in range(4):
+            sl = slice(8 * i, 8 * (i + 1))
+            v1, c1, a1 = hmc_chains_fused(
+                jax.random.fold_in(key, i), logp, vals0[sl], n_steps=3,
+                L=2, eps=0.3, interpret=True)
+            np.testing.assert_allclose(np.asarray(vals)[sl], np.asarray(v1),
+                                       rtol=1e-6, atol=1e-6)
+            np.testing.assert_allclose(np.asarray(coll)[:, sl],
+                                       np.asarray(c1), rtol=1e-6, atol=1e-6)
+            np.testing.assert_array_equal(np.asarray(accs)[sl],
+                                          np.asarray(a1))
+
+
 def test_multihost_mesh_constructors():
     """multihost.py mesh builders on the virtual single-process mesh: the
     slice mesh spans all devices; the hierarchical mesh puts the one host
-    on the DCN axis and local devices on ICI."""
+    on the DCN axis and local devices within a host."""
     from gen_tpu.parallel.multihost import hierarchical_mesh, slice_mesh
 
     m = slice_mesh("chains")
@@ -167,7 +205,7 @@ def test_sharded_nuts_chains_fused_matches_shapes():
         jax.random.PRNGKey(1), logp, vals0, num_ticks=64, mesh=mesh,
         eps=0.5, max_depth=5)
     assert v.shape == (32, 2)
-    # paired=True default (round 5): one history row per PAIR of slots
+    # one history row per two-leapfrog tick
     assert hist.shape == (32, 32)
     assert hcnt.shape == (32, 32)
     assert int(jnp.min(cnt)) > 0

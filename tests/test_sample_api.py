@@ -223,8 +223,8 @@ def test_nuts_fused_engine_matches_conjugate():
 
 
 def test_auto_engine_picks_fused_on_scalarizable_model():
-    """engine='auto' dispatches nuts_fused when the logp stages (the
-    conjugate-normal model scalarizes: sufficient-statistic likelihood)."""
+    """engine='auto' dispatches nuts_fused for >= 2 chains (the
+    conjugate-normal model)."""
     from gen_tpu.inference.sample import _auto_engine
 
     n = 12
@@ -253,12 +253,10 @@ def test_auto_engine_picks_fused_on_scalarizable_model():
 
 
 def test_auto_engine_falls_back_on_unscalarizable_model():
-    """Models whose assess-logp cannot stage into the fused kernel must
-    dispatch to the XLA nuts engine — but since round 4 a
-    non-sufficient-statistic likelihood over a large array STREAMS
-    (ops/scalarize stream staging) and dispatches FUSED; only genuinely
-    unstageable residuals (e.g. sort) fall back, caught by the probe at
-    plane-function evaluation."""
+    """The nuts_fused engine is plain XLA, so a model whose logp the
+    fused HMC kernel could not stage (a large per-point likelihood, a
+    sort) still dispatches nuts_fused under auto, and the run samples
+    it."""
     from gen_tpu.inference.sample import (_auto_engine,
                                           _default_selection)
 
@@ -272,7 +270,6 @@ def test_auto_engine_falls_back_on_unscalarizable_model():
     obs = choicemap(ys=jnp.zeros(2048))
     tr, _ = big_residual_model.generate(jax.random.PRNGKey(0), (), obs)
     sel, _ = _default_selection(tr, obs)
-    # round 3 fell back here (residual cap); round 4 streams the dataset
     assert _auto_engine(tr, obs, sel, 8)[0] == "nuts_fused"
 
     @gen
@@ -285,19 +282,21 @@ def test_auto_engine_falls_back_on_unscalarizable_model():
     obs2 = choicemap(y=jnp.asarray(0.3))
     tr2, _ = sort_model.generate(jax.random.PRNGKey(0), (), obs2)
     sel2, _ = _default_selection(tr2, obs2)
-    assert _auto_engine(tr2, obs2, sel2, 8)[0] == "nuts"
+    assert _auto_engine(tr2, obs2, sel2, 8)[0] == "nuts_fused"
 
     out = sample_posterior(jax.random.PRNGKey(1), sort_model, (), obs2,
                            num_chains=4, num_warmup=100, num_samples=100,
                            engine="auto")
-    assert out.samples["a"].shape == (100, 4)
+    assert out.info["engine"] == "nuts_fused"
+    a = out.samples["a"]
+    assert a.shape[1] == 4 and 2 <= a.shape[0] <= 100
+    assert np.all(np.isfinite(np.asarray(a)))
 
 
 def test_auto_engine_partial_selection_dispatches_fused():
-    """Since round 3 partial selections reach the fused engine (frozen
-    coordinates), so auto dispatches it for a scalarizable model even
-    with a partial selection — and the run returns only the selected
-    address."""
+    """Partial selections reach the fused engine (frozen coordinates), so
+    auto dispatches it even with a partial selection — and the run
+    returns only the selected address."""
     from gen_tpu.inference.sample import _auto_engine
 
     @gen
@@ -447,8 +446,8 @@ def test_selection_outside_universe_rejected():
 
 def test_engine_visibility_in_info():
     """info['engine'] records the engine that actually ran; engine='auto'
-    adds the dispatch reason, and a fallback to the XLA path warns
-    (VERDICT r3 item 7: the silent 1000x cliff must not be silent)."""
+    adds the dispatch reason, and a single chain (no cross-chain warmup)
+    dispatches the per-chain engine."""
     import warnings
 
     @gen
@@ -462,12 +461,11 @@ def test_engine_visibility_in_info():
                            engine="auto")
     assert out.info["engine"] == "nuts_fused"
     assert out.info["engine_requested"] == "auto"
-    assert "probe passed" in out.info["engine_reason"]
+    assert "num_chains >= 2" in out.info["engine_reason"]
 
-    # unscalarizable model: a traced-index gather in the likelihood —
-    # neither unrollable nor streamable (note a plain per-point
-    # heavy-tail likelihood now STREAMS through the fused path since
-    # round 4, so it no longer triggers the fallback) -> fallback + warn
+    # a traced-index gather in the likelihood (which the fused HMC
+    # kernel cannot stage) still dispatches nuts_fused, with no warning;
+    # one chain dispatches the per-chain engine
     table = jnp.asarray([0.0, 0.5, 1.0, 1.5], jnp.float32)
 
     @gen
@@ -482,9 +480,13 @@ def test_engine_visibility_in_info():
         out2 = sample_posterior(jax.random.PRNGKey(0), hard, (), obs2,
                                 num_chains=4, num_warmup=50,
                                 num_samples=32, engine="auto")
-    assert out2.info["engine"] == "nuts"
-    assert "scalarize" in out2.info["engine_reason"]
-    assert any("fell back" in str(x.message) for x in w)
+    assert out2.info["engine"] == "nuts_fused"
+    assert not any("fell back" in str(x.message) for x in w)
+    from gen_tpu.inference.sample import _auto_engine, _default_selection
+    tr2, _ = hard.generate(jax.random.PRNGKey(0), (), obs2)
+    sel2, _ = _default_selection(tr2, obs2)
+    engine1, reason1 = _auto_engine(tr2, obs2, sel2, 1)
+    assert engine1 == "nuts" and "num_chains < 2" in reason1
 
     # explicit engines record themselves too, with no reason field
     out3 = sample_posterior(jax.random.PRNGKey(0), model, (), obs,
@@ -543,3 +545,23 @@ def test_partial_selection_with_structured_mass():
         z = (xs - m[None, :, :]) / sd_ex[None, None, :]
         assert abs(z.mean()) < 0.1, (engine, mass, z.mean())
         assert abs(z.std() - 1.0) < 0.12, (engine, mass, z.std())
+
+
+def test_auto_engine_picks_fused_for_while_loop_logp():
+    """A model whose logp runs a while_loop (which no staging pass can
+    unroll) dispatches nuts_fused under engine='auto' and recovers its
+    posterior: the engine needs no staging."""
+    from gen_tpu.inference.sample import _auto_engine, _default_selection
+
+    @gen
+    def model():
+        mu = gt.normal(0.0, 1.0) @ "mu"
+        # mu + 0 via a loop with a data-dependent trip count
+        loc = jax.lax.while_loop(lambda c: c[1] < 3,
+                                 lambda c: (c[0], c[1] + 1), (mu, 0))[0]
+        gt.normal(loc, 0.5) @ "y"
+
+    obs = choicemap(y=jnp.asarray(0.8))
+    tr, _ = model.generate(jax.random.PRNGKey(0), (), obs)
+    sel, _ = _default_selection(tr, obs)
+    assert _auto_engine(tr, obs, sel, 8)[0] == "nuts_fused"
